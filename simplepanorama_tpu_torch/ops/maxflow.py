@@ -8,17 +8,19 @@ the nearest sink through positive residual edges, computed by directional
 min-plus scans) gives the next heights and the termination test. The
 source side of the cut is the set of nodes that cannot reach a sink.
 
-Two implementations of one function:
+Two solvers, each with a plain PyTorch version and a CUDA kernel:
 
-* ``grid_mincut_ref`` — plain PyTorch, a line-for-line port of
-  ``_mincut_core`` + ``_dist_to_sink_scan``. It defines the semantics and
-  runs on any device.
-* ``csrc/mincut.cu`` — the hand-written CUDA kernel for Hopper that
-  replaces the TPU Pallas kernel ``_mincut_kernel``.
+* whole grid: ``grid_mincut_ref``, a line-for-line port of
+  ``_mincut_core`` + ``_dist_to_sink_scan``, and ``csrc/mincut.cu``, the
+  kernel that replaces the TPU Pallas kernel ``_mincut_kernel``;
+* tiled: ``grid_mincut_tiled_ref``, the port of the row-tiled
+  ``_mincut_tiled_kernel``, and ``csrc/mincut_tiled.cu``, which replaces
+  it with 2-D tiles in shared memory.
 
-``grid_mincut`` dispatches on where its tensors live: CPU tensors take the
-plain version; CUDA tensors launch the kernel (built with nvcc at first
-use) or raise. There is no fallback from one to the other.
+``grid_mincut`` and ``grid_mincut_tiled`` dispatch on where their tensors
+live: CPU tensors take the plain version; CUDA tensors launch the kernel
+(built with nvcc at first use) or raise. There is no fallback from one to
+the other. ``grid_mincut_auto`` picks the solver by grid size.
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ def _shift(x: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
     return out
 
 
-def _scan_offsets(open_, dim: int, reverse: bool):
+def _scan_offsets(open_, dim: int, reverse: bool, big: int):
     """Offsets of one scan direction for _minplus_scan. Each run of open
     steps is a segment; the offset is p + seg(p) * big, so every later
     segment sits above anything before it and the cummin cannot reach
-    across a closed step. Built once per BFS: the open steps do not
+    across a closed step (``big`` exceeds the spread of the distances
+    plus the line length). Built once per BFS: the open steps do not
     change while it runs."""
     if reverse:
         open_ = open_.flip(dim)
@@ -60,7 +63,7 @@ def _scan_offsets(open_, dim: int, reverse: bool):
     shape[dim] = n
     idx = torch.arange(n, device=open_.device).view(shape)
     seg = torch.cumsum((~open_).to(torch.int64), dim)
-    return idx + seg * (4 * open_.numel() + 4 * n)
+    return idx + seg * big
 
 
 def _minplus_scan(d, lo, dim: int, reverse: bool):
@@ -75,26 +78,26 @@ def _minplus_scan(d, lo, dim: int, reverse: bool):
     return out.flip(dim) if reverse else out
 
 
-def _dist_to_sink_scan(caps, demand, node, n_pass: int):
-    """BFS distance to the nearest sink-demand node: passes of
-    down/up/right/left min-plus scans until nothing changes (one host
-    sync per pass). Distances are exact small integers, carried as int64
-    with a sentinel above every reachable distance for INF."""
-    H, W = demand.shape
-    sentinel = H * W + H + W + 1
+def _relax_scan(caps, d, node, n_pass: int, sentinel: int):
+    """Passes of down/up/right/left min-plus scans over integer distances
+    ``d`` (int64, ``sentinel`` for INF) until a pass changes nothing (one
+    host sync per pass) or ``n_pass`` passes ran: the fixpoint of
+    d[p] = min(d[p], d[q] + 1) over residual edges p -> q, restricted to
+    the node set."""
+    H, W = d.shape
+    # a scan never raises a distance, so every value stays <= sentinel
+    big = 2 * sentinel + 8 * (H + W)
     # a step into p from its predecessor is open iff p can push back
     # toward the predecessor (residual capacity of the reverse direction)
     open_down, open_up = caps[3] > 0, caps[2] > 0
     open_right, open_left = caps[1] > 0, caps[0] > 0
-    unreach = torch.full(demand.shape, sentinel, dtype=torch.int64,
-                         device=demand.device)
-    d = torch.where(demand & node, torch.zeros_like(unreach), unreach)
+    unreach = torch.full_like(d, sentinel)
     # column scans run on a transposed copy, so every scan is along the
     # contiguous dim
-    lo_down = _scan_offsets(open_down.t().contiguous(), 1, False)
-    lo_up = _scan_offsets(open_up.t().contiguous(), 1, True)
-    lo_right = _scan_offsets(open_right, 1, False)
-    lo_left = _scan_offsets(open_left, 1, True)
+    lo_down = _scan_offsets(open_down.t().contiguous(), 1, False, big)
+    lo_up = _scan_offsets(open_up.t().contiguous(), 1, True, big)
+    lo_right = _scan_offsets(open_right, 1, False, big)
+    lo_left = _scan_offsets(open_left, 1, True, big)
     for _ in range(n_pass):
         prev = d
         dt = d.t().contiguous()
@@ -106,8 +109,68 @@ def _dist_to_sink_scan(caps, demand, node, n_pass: int):
         d = torch.where(node & (d < sentinel), d, unreach)
         if not bool((d < prev).any()):
             break
+    return d
+
+
+def _dist_to_sink_scan(caps, demand, node, n_pass: int):
+    """BFS distance to the nearest sink-demand node by _relax_scan.
+    Distances are exact small integers, carried as int64 with a sentinel
+    above every reachable distance for INF."""
+    H, W = demand.shape
+    sentinel = H * W + H + W + 1
+    unreach = torch.full(demand.shape, sentinel, dtype=torch.int64,
+                         device=demand.device)
+    d = torch.where(demand & node, torch.zeros_like(unreach), unreach)
+    d = _relax_scan(caps, d, node, n_pass, sentinel)
     return torch.where(d < sentinel, d.to(torch.float32),
                        torch.full_like(caps[0], _INF))
+
+
+def _init_state(cap_h, cap_v, excess0, node):
+    """Residual capacities and clipped excess of the seam graph
+    (maxflow.py:164-183): caps[k][p] = residual capacity from p toward
+    its k-neighbour, t-links clamped to the incident capacity sum + 1."""
+    nodef = node.to(torch.float32)
+    cap_h = cap_h.to(torch.float32) * nodef * _shift(nodef, 0, 1, 0.0)
+    cap_v = cap_v.to(torch.float32) * nodef * _shift(nodef, 1, 0, 0.0)
+    caps = [cap_h, _shift(cap_h, 0, -1, 0.0),
+            cap_v, _shift(cap_v, -1, 0, 0.0)]
+    e = torch.where(node, excess0.to(torch.float32),
+                    torch.zeros_like(cap_h))
+    cap_sum = caps[0] + caps[1] + caps[2] + caps[3] + 1.0
+    return caps, torch.minimum(torch.maximum(e, -cap_sum), cap_sum)
+
+
+def _push_phase(caps, e, h, interior=None):
+    """One push/relabel phase (the 4 push sub-steps, each lock-step, then
+    the relabel); ``caps`` is updated in place, (e, h) returned. With
+    ``interior``, only those cells push or lift (a row tile of the tiled
+    solver, maxflow.py:591-607); the others only receive."""
+    zero = torch.zeros_like(e)
+    inf = torch.full_like(e, _INF)
+    # h is unchanged by the pushes: the shifted heights and the "exactly
+    # one lower" tests serve every push sub-step and the relabel
+    h_nb = [_shift(h, dy, dx, _INF) for dy, dx in _DIRS]
+    lower = [h == nb + 1.0 for nb in h_nb]
+    for k, (dy, dx) in enumerate(_DIRS):
+        admissible = (e > 0) & lower[k] & (caps[k] > 0)
+        if interior is not None:
+            admissible &= interior
+        flow = torch.where(admissible, torch.minimum(e, caps[k]), zero)
+        caps[k] = caps[k] - flow
+        back = _shift(flow, -dy, -dx, 0.0)
+        caps[_REV[k]] = caps[_REV[k]] + back
+        e = e - flow + back
+    min_h = inf
+    adm = torch.zeros(e.shape, dtype=torch.bool, device=e.device)
+    for k in range(4):
+        has_cap = caps[k] > 0
+        min_h = torch.minimum(min_h, torch.where(has_cap, h_nb[k], inf))
+        adm |= has_cap & lower[k]
+    lift = (e > 0) & (~adm) & (min_h < _INF)
+    if interior is not None:
+        lift &= interior
+    return e, torch.where(lift, min_h + 1.0, h)
 
 
 def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
@@ -120,41 +183,7 @@ def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
     if sweep_iters <= 0:
         sweep_iters = H + W + 4
     node = node.to(torch.bool)
-    nodef = node.to(torch.float32)
-    cap_h = cap_h.to(torch.float32) * nodef * _shift(nodef, 0, 1, 0.0)
-    cap_v = cap_v.to(torch.float32) * nodef * _shift(nodef, 1, 0, 0.0)
-    # caps[k][p] = residual capacity from p toward its k-neighbour
-    caps = [cap_h, _shift(cap_h, 0, -1, 0.0),
-            cap_v, _shift(cap_v, -1, 0, 0.0)]
-    e = torch.where(node, excess0.to(torch.float32),
-                    torch.zeros_like(cap_h))
-    # clamp t-links to the incident capacity sum + 1 (maxflow.py:177-183)
-    cap_sum = caps[0] + caps[1] + caps[2] + caps[3] + 1.0
-    e = torch.minimum(torch.maximum(e, -cap_sum), cap_sum)
-    zero = torch.zeros_like(e)
-    inf = torch.full_like(e, _INF)
-
-    def push_phase(e, h):
-        # h is unchanged by the pushes: the shifted heights and the
-        # "exactly one lower" tests serve every push sub-step and the
-        # relabel
-        h_nb = [_shift(h, dy, dx, _INF) for dy, dx in _DIRS]
-        lower = [h == nb + 1.0 for nb in h_nb]
-        for k, (dy, dx) in enumerate(_DIRS):
-            admissible = (e > 0) & lower[k] & (caps[k] > 0)
-            flow = torch.where(admissible, torch.minimum(e, caps[k]), zero)
-            caps[k] = caps[k] - flow
-            back = _shift(flow, -dy, -dx, 0.0)
-            caps[_REV[k]] = caps[_REV[k]] + back
-            e = e - flow + back
-        min_h = inf
-        adm = torch.zeros_like(node)
-        for k in range(4):
-            has_cap = caps[k] > 0
-            min_h = torch.minimum(min_h, torch.where(has_cap, h_nb[k], inf))
-            adm |= has_cap & lower[k]
-        lift = (e > 0) & (~adm) & (min_h < _INF)
-        return e, torch.where(lift, min_h + 1.0, h)
+    caps, e = _init_state(cap_h, cap_v, excess0, node)
 
     def bfs():
         return _dist_to_sink_scan(caps, e < 0, node, sweep_iters)
@@ -164,10 +193,114 @@ def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
     while it < max_outer and bool(((e > 0) & (d < _INF)).any()):
         h = d
         for _ in range(inner_iters):
-            e, h = push_phase(e, h)
+            e, h = _push_phase(caps, e, h)
         d = bfs()
         it += 1
     return (d >= _INF) & node
+
+
+def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
+                          excess0: torch.Tensor, node: torch.Tensor,
+                          max_outer: int = 400, inner_iters: int = 30,
+                          sweep_iters: int = 0,
+                          tile_rows: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of the row-tiled solver (the TPU kernel
+    _mincut_tiled_kernel, maxflow.py:411-663, as grid_mincut_pallas_tiled
+    calls it). The state lives in whole-grid planes with 8 guard rows
+    above and below; row tiles of ``tile_rows`` rows (8-aligned, as
+    maxflow.py:677) are worked one after another, which makes cross-tile
+    flow exact:
+
+    * a push phase visits tiles 0..T-1; a tile with no positive interior
+      excess is skipped (the peek, :569-580); an active tile pushes and
+      relabels its interior only, and its flow lands in the rows just
+      outside it, the neighbour tiles' edge rows (:582-613);
+    * the BFS seeds the sinks, then runs rounds over all tiles in
+      alternating down/up order until a round changes nothing (:526-561);
+      a tile scans its view with 8 halo rows each side to a local
+      fixpoint and keeps its interior rows;
+    * the outer loop ends when no node with positive excess reaches a
+      sink (:616-650); the side is the set of nodes that cannot (:653).
+
+    The TPU's 128-column padding serves only Mosaic's layout (padded
+    columns are not nodes) and is left out. One host sync per tile peek
+    and per BFS pass."""
+    H, W = cap_h.shape
+    Tr = min(tile_rows, (H + 7) // 8 * 8)
+    T = (H + Tr - 1) // Tr
+    H2 = T * Tr + 16
+    if sweep_iters <= 0:
+        sweep_iters = H + W + 4
+    dev = cap_h.device
+
+    def pad(x, dtype):
+        out = torch.zeros((H2, W), dtype=dtype, device=dev)
+        out[8:8 + H] = x
+        return out
+
+    node_p = pad(node.to(torch.bool), torch.bool)
+    caps, e = _init_state(pad(cap_h, torch.float32),
+                          pad(cap_v, torch.float32),
+                          pad(excess0, torch.float32), node_p)
+    d = torch.full((H2, W), _INF, dtype=torch.float32, device=dev)
+    sentinel = H2 * W + H2 + W + 1
+
+    def bfs_tile(t) -> bool:
+        v0, v1 = t * Tr, t * Tr + Tr + 16
+        nd = node_p[v0:v1]
+        dv = torch.where(nd, d[v0:v1], torch.full_like(d[v0:v1], _INF))
+        dv = torch.minimum(dv, torch.where((e[v0:v1] < 0) & nd,
+                                           torch.zeros_like(dv), dv))
+        di = torch.where(dv < _INF, dv.to(torch.int64),
+                         torch.full(dv.shape, sentinel, dtype=torch.int64,
+                                    device=dev))
+        di = _relax_scan([c[v0:v1] for c in caps], di, nd, sweep_iters,
+                         sentinel)
+        out = torch.where(di < sentinel, di.to(torch.float32),
+                          torch.full_like(dv, _INF))
+        d[v0 + 8:v0 + 8 + Tr] = out[8:8 + Tr]
+        return bool((out < dv).any())
+
+    def bfs():
+        d.copy_(torch.where((e < 0) & node_p, torch.zeros_like(d),
+                            torch.full_like(d, _INF)))
+        rnd, changed = 0, True
+        while rnd < sweep_iters and changed:
+            order = range(T) if rnd % 2 == 0 else range(T - 1, -1, -1)
+            changed = False
+            for t in order:
+                changed |= bfs_tile(t)
+            rnd += 1
+
+    interior = torch.zeros((Tr + 2, 1), dtype=torch.bool, device=dev)
+    interior[1:Tr + 1] = True
+
+    def push_tile(t):
+        r0 = t * Tr + 8
+        if not bool(((e[r0:r0 + Tr] > 0) & node_p[r0:r0 + Tr]).any()):
+            return
+        # the interior and one row each side: flow from the interior only
+        # reaches the first halo row, the other halo rows stay unchanged
+        s0, s1 = r0 - 1, r0 + Tr + 1
+        cs = [c[s0:s1] for c in caps]
+        es, hs = _push_phase(cs, e[s0:s1], d[s0:s1], interior)
+        for c, cn in zip(caps, cs):
+            c[s0:s1] = cn
+        e[s0:s1] = es
+        d[s0:s1] = hs
+
+    def work_left():
+        return bool(((e > 0) & (d < _INF) & node_p).any())
+
+    bfs()
+    it = 0
+    while it < max_outer and work_left():
+        for _ in range(inner_iters):
+            for t in range(T):
+                push_tile(t)
+        bfs()
+        it += 1
+    return ((d >= _INF) & node_p)[8:8 + H]
 
 
 def cut_value(cap_h, cap_v, excess0, node, side) -> float:
@@ -190,23 +323,30 @@ def cut_value(cap_h, cap_v, excess0, node, side) -> float:
                  + np.where(S, np.maximum(-exc, 0), 0).sum())
 
 
-_LIB = None
+# kernel -> (library, source under csrc/, C entry point); both entry
+# points take the same arguments
+_KERNELS = {
+    "grid_mincut": ("spt_mincut", "mincut.cu", "spt_grid_mincut"),
+    "grid_mincut_tiled": ("spt_mincut_tiled", "mincut_tiled.cu",
+                          "spt_grid_mincut_tiled"),
+}
+_ENTRY = {}
 
 
-def build(rebuild: bool = False) -> float:
-    """Build (or reuse, unless ``rebuild``) csrc/mincut.cu; returns the
-    seconds spent building in this process."""
-    global _LIB
+def build(kernel: str = "grid_mincut", rebuild: bool = False) -> float:
+    """Build (or reuse, unless ``rebuild``) the kernel's CUDA source;
+    returns the seconds spent building in this process."""
     from simplepanorama_tpu_torch.utils.nvcc import load_library
-    lib, seconds = load_library("spt_mincut", ["mincut.cu"], rebuild=rebuild)
-    if _LIB is None:
-        lib.spt_grid_mincut.argtypes = [ctypes.c_void_p] * 7 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p,
-                                  ctypes.POINTER(ctypes.c_longlong)]
-        lib.spt_grid_mincut.restype = ctypes.c_int
+    lib_name, source, entry = _KERNELS[kernel]
+    lib, seconds = load_library(lib_name, [source], rebuild=rebuild)
+    if kernel not in _ENTRY:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
         lib.spt_error_string.argtypes = [ctypes.c_int]
         lib.spt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _ENTRY[kernel] = (fn, lib.spt_error_string)
     return seconds
 
 
@@ -225,6 +365,30 @@ def _check(cap_h, cap_v, excess0, node):
         want = torch.bool if name == "node" else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
+    if cap_h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grid_mincut runs on cpu or cuda, not {cap_h.device}")
+
+
+def _launch(kernel, n_work, cap_h, cap_v, excess0, node, max_outer,
+            inner_iters, sweep_iters):
+    """Run one CUDA solver; returns (side, its three stats counters)."""
+    build(kernel)
+    fn, err = _ENTRY[kernel]
+    H, W = cap_h.shape
+    dev = cap_h.device
+    side = torch.empty((H, W), dtype=torch.bool, device=dev)
+    work = torch.empty((n_work, H, W), dtype=torch.float32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    stats = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(cap_h.data_ptr(), cap_v.data_ptr(), excess0.data_ptr(),
+                node.data_ptr(), side.data_ptr(), work.data_ptr(),
+                flags.data_ptr(), H, W, max_outer, inner_iters, sweep_iters,
+                stream, stats)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel failed: " + err(rc).decode())
+    return side, tuple(stats)
 
 
 def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
@@ -245,30 +409,14 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
     H, W = cap_h.shape
     if sweep_iters <= 0:
         sweep_iters = H + W + 4   # grid diameter bounds every BFS
-    dev = cap_h.device
-    if dev.type == "cpu":
+    if cap_h.device.type == "cpu":
         return grid_mincut_ref(cap_h, cap_v, excess0, node, max_outer,
                                inner_iters, sweep_iters)
-    if dev.type != "cuda":
-        raise ValueError(f"grid_mincut runs on cpu or cuda, not {dev}")
-    build()
-    side = torch.empty((H, W), dtype=torch.bool, device=dev)
-    work = torch.empty((13, H, W), dtype=torch.float32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)
-    stats = (ctypes.c_longlong * 3)()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _LIB.spt_grid_mincut(
-            cap_h.data_ptr(), cap_v.data_ptr(), excess0.data_ptr(),
-            node.data_ptr(), side.data_ptr(), work.data_ptr(),
-            flags.data_ptr(), H, W, max_outer, inner_iters, sweep_iters,
-            stream, stats)
-    if rc != 0:
-        raise RuntimeError("mincut kernel failed: "
-                           + _LIB.spt_error_string(rc).decode())
+    side, stats = _launch("grid_mincut", 13, cap_h, cap_v, excess0, node,
+                          max_outer, inner_iters, sweep_iters)
     grid_mincut.launches += 1
-    grid_mincut.last_stats = {"outer": stats[0], "bfs_passes": stats[1],
-                              "kernels": stats[2]}
+    grid_mincut.last_stats = dict(zip(("outer", "bfs_passes", "kernels"),
+                                      stats))
     return side
 
 
@@ -276,8 +424,54 @@ grid_mincut.launches = 0
 grid_mincut.last_stats = None
 
 
+def grid_mincut_tiled(cap_h: torch.Tensor, cap_v: torch.Tensor,
+                      excess0: torch.Tensor, node: torch.Tensor,
+                      max_outer: int = 400, inner_iters: int = 30,
+                      sweep_iters: int = 0) -> torch.Tensor:
+    """The tiled min cut (port of grid_mincut_pallas_tiled as
+    grid_mincut_auto calls it), same inputs and output as grid_mincut.
+    CPU tensors run grid_mincut_tiled_ref (row tiles of 512, as the JAX
+    package); CUDA tensors launch csrc/mincut_tiled.cu, whose 2-D tiles
+    (32x128 for the pushes, 64x128 for the BFS) are fixed by its source,
+    and count the launch in ``grid_mincut_tiled.launches``.
+    ``last_stats`` holds the outer rounds, BFS rounds and kernel launches
+    of the last solve on the card."""
+    _check(cap_h, cap_v, excess0, node)
+    H, W = cap_h.shape
+    if sweep_iters <= 0:
+        sweep_iters = H + W + 4
+    if cap_h.device.type == "cpu":
+        return grid_mincut_tiled_ref(cap_h, cap_v, excess0, node, max_outer,
+                                     inner_iters, sweep_iters)
+    side, stats = _launch("grid_mincut_tiled", 7, cap_h, cap_v, excess0,
+                          node, max_outer, inner_iters, sweep_iters)
+    grid_mincut_tiled.launches += 1
+    grid_mincut_tiled.last_stats = dict(zip(("outer", "bfs_rounds",
+                                             "kernels"), stats))
+    return side
+
+
+grid_mincut_tiled.launches = 0
+grid_mincut_tiled.last_stats = None
+
+# Largest grid the whole-grid solver takes: the JAX package's
+# _PALLAS_MAX_CELLS (maxflow.py:361). On the H100 it also marks where the
+# whole-grid kernel's 13 f32 state planes (52 B/cell, 62 MB at 1.2M
+# cells) no longer fit the 50 MB L2. Measured on an H100 80GB HBM3 at
+# 700 W on seam blocks: kernel 1's push streams at an L2 rate (3.8 TB/s)
+# up to 1.0M cells and at an HBM rate (2.6 TB/s) from 1.9M, and the tiled
+# kernel overtakes it between 1.0M and 1.5M cells.
+WHOLE_GRID_MAX_CELLS = 1_200_000
+
+
 def grid_mincut_auto(cap_h, cap_v, excess0, node, **kw):
-    """The solver the seam graph-cut calls. On the card the solver state
-    sits in device memory at every size, so there is no size dispatch
-    (the TPU package picks between an in-VMEM and a row-tiled kernel)."""
-    return grid_mincut(cap_h, cap_v, excess0, node, **kw)
+    """The solver the seam graph cut calls, dispatched as the traced
+    branch of the JAX package's grid_mincut_auto (maxflow.py:753, :777):
+    on H*W alone, with no bounding-box crop. At or under
+    WHOLE_GRID_MAX_CELLS the whole-grid solver (kernel 1 on the card,
+    grid_mincut_ref on the CPU); over it the tiled one (kernel 2,
+    grid_mincut_tiled_ref)."""
+    H, W = cap_h.shape
+    if H * W <= WHOLE_GRID_MAX_CELLS:
+        return grid_mincut(cap_h, cap_v, excess0, node, **kw)
+    return grid_mincut_tiled(cap_h, cap_v, excess0, node, **kw)

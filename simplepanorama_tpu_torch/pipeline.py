@@ -2,8 +2,9 @@
 
 Port of simplepanorama_tpu/pipeline.py (the reference's headless path,
 pan::panorama): construct with image paths and a device, `stitch(config)`,
-then `get_preview()`. Progress is reported through a callback and
-cancellation through a token polled at stage boundaries.
+then `get_preview()` and `get_panorama()`. Progress is reported through a
+callback and cancellation through a token polled at stage boundaries. The
+JAX package's background prefetch of the full-res sources is not ported.
 
 The device is explicit: ``device="cuda"`` runs on the GPU and raises when
 no GPU is present; the CPU is used only when asked for. The entry points
@@ -74,6 +75,21 @@ def full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def crop_roi(full: np.ndarray, preview_hw, roi) -> np.ndarray:
+    """The full-res crop of ``roi`` = (x, y, w, h) given in preview
+    coordinates: each edge scaled by the full/preview size ratio and
+    truncated, then clipped to the panorama."""
+    fh, fw = full.shape[:2]
+    ph, pw = preview_hw
+    sx, sy = fw / pw, fh / ph
+    x, y, w, h = roi
+    x0 = max(0, int(x * sx))
+    y0 = max(0, int(y * sy))
+    x1 = min(fw, int((x + w) * sx))
+    y1 = min(fh, int((y + h) * sy))
+    return full[y0:y1, x0:x1]
+
+
 class Panorama:
     """Full pipeline entry point. See `stitch()`."""
 
@@ -95,6 +111,7 @@ class Panorama:
         self.connected = (0, 0)      # (n_connected, n_total)
         # RANSAC draw stream override (adjacency.build_adjacency)
         self.pair_draws = None
+        self._full_pano: Optional[np.ndarray] = None
 
     def cancel(self) -> None:
         self.cancel_token.cancel()
@@ -106,6 +123,7 @@ class Panorama:
             stitcher.run_pipeline(self.images, self.config, self.progress,
                                   self.cancel_token, device=self.device,
                                   pair_draws=self.pair_draws)
+        self._full_pano = None
         return self
 
     def set_config(self, config: Config) -> "Panorama":
@@ -120,6 +138,7 @@ class Panorama:
         self.stitch_params = stitcher.set_config(
             self.result, comp_imgs, config, device=self.device)
         self.connected = (len(self.result.nodes), len(self.images.img_data))
+        self._full_pano = None
         return self
 
     def get_preview(self) -> np.ndarray:
@@ -129,8 +148,21 @@ class Panorama:
         return stitcher.render_preview(self.stitch_params, self.config)
 
     def get_panorama(self, roi=None) -> np.ndarray:
-        raise _not_ported("get_panorama (full-resolution render)",
-                          "full-res render and gain")
+        """Full-resolution render (re-projects and re-blends only: BA ran
+        at init_size; _panorama.cpp:259-354), cached until the next
+        stitch() or set_config(). ``roi`` is (x, y, w, h) in preview
+        coordinates, rescaled like _panorama.cpp:547-569."""
+        from simplepanorama_tpu_torch import stitcher
+        if self.stitch_params is None:
+            raise RuntimeError("stitch() has not been run")
+        if self._full_pano is None:
+            self._full_pano = stitcher.render_full_from_imageset(
+                self.stitch_params, self.config, self.images)
+        if roi is None:
+            return self._full_pano
+        # the preview's shape is its canvas
+        return crop_roi(self._full_pano, self.stitch_params.state.canvas_hw,
+                        roi)
 
     def save_state(self, path) -> None:
         raise _not_ported("save_state", "checkpoint")

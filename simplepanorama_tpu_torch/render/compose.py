@@ -178,6 +178,53 @@ def apply_intensity_dev(imgs, fields):
     return imgs / up[..., None]
 
 
+def gain_dev(imgs, msks, offs, canvas_hw, adj) -> np.ndarray:
+    """Gain compensation on packed blocks (Brown & Lowe §6 eq. 29,
+    gain::gain_compensation, _gain_compensation.cpp:78-172): pairwise
+    overlap areas and intensity sums on the device, the small solve in
+    float64 on the host. Returns the (N,) gains of the state's rows."""
+    n = imgs.shape[0]
+    gray = (0.114 * imgs[..., 0] + 0.587 * imgs[..., 1]
+            + 0.299 * imgs[..., 2])
+    N_mat, S_mat = _overlap_sums_dev(gray, msks, offs, canvas_hw)
+    N_np = N_mat.cpu().numpy().astype(np.float64)
+    S_np = S_mat.cpu().numpy().astype(np.float64)
+    adj_sym = np.asarray(adj) + np.asarray(adj).T + np.eye(n)
+    use = adj_sym > 0
+    N_np = np.where(use & (N_np > 0), N_np, 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        I = np.where(N_np > 0, S_np / N_np, 0.0)
+    Iref = I.T
+    S_N, S_g = 100.0, 0.01
+    B = np.diag(N_np.sum(axis=1))
+    A = np.diag((N_np * Iref * Iref).sum(axis=1))
+    C = N_np * Iref * Iref.T
+    G = (1.0 / S_g) * np.diag(B)
+    M = (2.0 / S_N) * (A - C) + (1.0 / S_g) * B
+    try:
+        return np.linalg.solve(M, G)
+    except np.linalg.LinAlgError:
+        return np.ones(n)
+
+
+def _overlap_sums_dev(grays, msks, offs, canvas_hw):
+    """(N, N) overlap areas and masked intensity sums: every block pasted
+    into its own canvas plane, then two products of the flattened
+    stacks (N_ij = |M_i & M_j|, S_ij = sum of gray_i over M_i & M_j)."""
+    H, W = canvas_hw
+    n, Hb, Wb = grays.shape
+    cm = torch.zeros((n, H + Hb, W + Wb), dtype=torch.float32,
+                     device=grays.device)
+    cg = torch.zeros_like(cm)
+    for i, (y, x) in enumerate(offs_list(offs)):
+        m = msks[i].to(torch.float32)
+        cm[i, y:y + Hb, x:x + Wb] = m
+        cg[i, y:y + Hb, x:x + Wb] = grays[i] * m
+    fm = cm.reshape(n, -1)
+    fg = cg.reshape(n, -1)
+    return fm @ fm.T, fg @ fm.T
+
+
 def blend_dev(method: str, state: ComposeState, imgs, bands: int,
               sigma: float) -> np.ndarray:
     """Blend packed blocks -> uint8 numpy panorama (one transfer)."""

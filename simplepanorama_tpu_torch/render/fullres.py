@@ -1,0 +1,299 @@
+"""Full-resolution render on one device, streamed in chunks.
+
+Port of the single-device path of simplepanorama_tpu/render/fullres.py
+(the reference's return_full, _panorama.cpp:259-354): reload the
+full-resolution images, rescale K by the full/preview width ratio,
+re-project, upsample the preview's seam masks and intensity fields to the
+full-res blocks, divide by the preview's gains, and re-blend. BA never
+runs again.
+
+The only persistent device state is the canvas accumulator pair (color,
+alpha); the images go through in chunks sized to a device-memory budget,
+each warped, corrected and folded into the canvas, then freed. Seam masks
+are upsampled with a cv2-aligned cubic interpolation matrix (Keys
+a=-0.75, pixel-centre mapping src = (dst + 0.5) * ratio - 0.5, the
+INTER_CUBIC of _panorama.cpp:329-335), intensity fields with the linear
+one (test::adjust_intensity, _test.cpp:110-122).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from simplepanorama_tpu_torch.config import Blending, Config
+from simplepanorama_tpu_torch.geometry.canvas import get_pan_dimension
+from simplepanorama_tpu_torch.ops.edt import distance_transform
+from simplepanorama_tpu_torch.render import projection as prj
+from simplepanorama_tpu_torch.render.blending import (_acc_add,
+                                                      mb_batch_contribution)
+
+# device-memory budget for in-flight chunk blocks (bytes); the canvas
+# accumulators are excluded (they are the irreducible state)
+_CHUNK_BUDGET = int(1.5e9)
+
+
+def _cubic_kernel(t: torch.Tensor) -> torch.Tensor:
+    """Keys bicubic, a = -0.75 (OpenCV's INTER_CUBIC)."""
+    a = -0.75
+    at = torch.abs(t)
+    w1 = ((a + 2.0) * at - (a + 3.0)) * at * at + 1.0
+    w2 = a * (((at - 5.0) * at + 8.0) * at - 4.0)
+    return torch.where(at <= 1.0, w1,
+                       torch.where(at < 2.0, w2, torch.zeros_like(at)))
+
+
+def _linear_kernel(t: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - torch.abs(t), min=0.0)
+
+
+def _resize_matrix(n_out: int, n_in: int, ratio: float, offset: float = 0.0,
+                   cubic: bool = True, device="cpu") -> torch.Tensor:
+    """(n_out, n_in) interpolation matrix with cv2 pixel-centre mapping
+    src = (dst + 0.5 + offset) * ratio - 0.5, in float32. Rows are
+    normalised (the out-of-range tail of the kernel is redistributed,
+    approximating BORDER_REPLICATE); rows whose support misses [0, n_in)
+    are zero, and those zero rows are what ends a seam at the edge of its
+    block."""
+    o = torch.arange(n_out, dtype=torch.float32, device=device)
+    r = torch.tensor(ratio, dtype=torch.float32, device=device)
+    src = (o + 0.5 + offset) * r - 0.5
+    i = torch.arange(n_in, dtype=torch.float32, device=device)
+    W = (_cubic_kernel if cubic else _linear_kernel)(src[:, None] - i[None, :])
+    s = W.sum(dim=1, keepdim=True)
+    return torch.where(torch.abs(s) > 1e-6,
+                       W / torch.where(s == 0, torch.ones_like(s), s),
+                       torch.zeros_like(W))
+
+
+def _upsample_block(block: torch.Tensor, n_out_hw, ratio_hw,
+                    cubic: bool) -> torch.Tensor:
+    """Resize a (h_in, w_in) block to ``n_out_hw`` with per-axis ratios,
+    as two matrix products."""
+    Wy = _resize_matrix(n_out_hw[0], block.shape[0], ratio_hw[0],
+                        cubic=cubic, device=block.device)
+    Wx = _resize_matrix(n_out_hw[1], block.shape[1], ratio_hw[1],
+                        cubic=cubic, device=block.device)
+    return Wy @ block @ Wx.T
+
+
+def _chunk_accum(color, alpha, src_u8, Ka, R, corner, vhw, roi_wh, offs,
+                 seam_blks, seam_ratios, field_blks, field_ratios, gains,
+                 scale: float, kind: str, out_h: int, out_w: int,
+                 bands: int, sigma: float, method: str, use_seam: bool,
+                 use_field: bool, paste_seam: bool) -> None:
+    """Fold one chunk of G images into the canvas accumulators, in place
+    (port of fullres._chunk_accum).
+
+    method MULTI: (color, alpha) are the multiband sums.
+    method SIMPLE: feathered (1 - acc) compositing, as blending.simple_blend.
+    method NO: color is the canvas, alpha unused (paste in order).
+
+    src_u8 is the (G, Hs, Ws, 3) uint8 source stack on the device; the
+    per-image parameters are (G, ...) tensors on the device (``offs`` host
+    (y, x) pairs, ``seam_ratios``/``field_ratios``/``gains`` host floats).
+    The chunk may be shorter than the budget's G: the JAX package pads it
+    with entries whose source size is 0, which contribute nothing."""
+    G = src_u8.shape[0]
+    imgs, masks, seam_ups = [], [], []
+    for g in range(G):
+        # the bilinear warp of the uint8 source (projection.
+        # warp_from_grid_u8 computes the same on packed neighbours)
+        warped, mask = prj.warp_backward(
+            src_u8[g].to(torch.float32), Ka[g], R[g], corner[g], scale, kind,
+            out_h, out_w, vhw[g])
+        if use_seam:
+            seam_ups.append(_upsample_block(seam_blks[g], (out_h, out_w),
+                                            seam_ratios[g], cubic=True))
+        img = warped / gains[g]
+        if use_field:
+            f_up = _upsample_block(field_blks[g], (out_h, out_w),
+                                   field_ratios[g], cubic=False)
+            f_up = torch.where(torch.abs(f_up) < 1e-6,
+                               torch.ones_like(f_up), f_up)
+            img = img / f_up[..., None]
+        # img is NOT zeroed outside the eroded mask: the reference blurs
+        # the full warped block (values in the erosion rim bleed into the
+        # band colours); the weights alone are mask-gated
+        imgs.append(img)
+        masks.append(mask)
+    imgs = torch.stack(imgs)
+    masks = prj.erode_mask(torch.stack(masks), iters=4)
+    yy = torch.arange(out_h, device=masks.device)[None, :, None]
+    xx = torch.arange(out_w, device=masks.device)[None, None, :]
+    masks = masks & (yy < roi_wh[:, 1, None, None]) \
+        & (xx < roi_wh[:, 0, None, None])
+    masks_f = masks.to(torch.float32)
+    if use_seam:
+        seams = ((torch.stack(seam_ups) > 0.5) & masks).to(torch.float32)
+    else:
+        seams = masks_f
+
+    if method == "MULTI":
+        colors, alphas = mb_batch_contribution(imgs, seams, masks_f, bands,
+                                               sigma)
+        for g, off in enumerate(offs):
+            _acc_add(color, colors[g], off)
+            _acc_add(alpha, alphas[g], off)
+    elif method == "SIMPLE":
+        dts = distance_transform(masks_f > 0)
+        feas = dts / torch.clamp(dts.amax(dim=(1, 2), keepdim=True),
+                                 min=1e-12)
+        for g, (y, x) in enumerate(offs):
+            acc_a = alpha[y:y + out_h, x:x + out_w]
+            contrib = feas[g] * (1.0 - acc_a)
+            _acc_add(color, imgs[g] * contrib[..., None], (y, x))
+            alpha[y:y + out_h, x:x + out_w] = acc_a + contrib
+    else:
+        sel = seams if paste_seam else masks_f
+        for g, (y, x) in enumerate(offs):
+            sl = color[y:y + out_h, x:x + out_w]
+            color[y:y + out_h, x:x + out_w] = torch.where(
+                sel[g][..., None] > 0, imgs[g], sl)
+
+
+def _finalize(color, alpha, method: str, bands: int, hw) -> torch.Tensor:
+    H, W = hw
+    color = color[:H, :W]
+    alpha = alpha[:H, :W, None]
+    if method == "NO":
+        out = color
+    else:
+        out = color / torch.clamp(alpha, min=1e-12)
+        if method == "MULTI":
+            out = out * bands
+        out = torch.where(alpha > 0, out, torch.zeros_like(out))
+    return torch.clamp(out, 0.0, 255.0).to(torch.uint8)
+
+
+def _pad_align(h: int, w: int):
+    return (h + 7) // 8 * 8, (w + 127) // 128 * 128
+
+
+def render_full_dev(params, cfg: Config,
+                    full_images: Sequence[Optional[np.ndarray]]
+                    ) -> np.ndarray:
+    """Streaming re-render at full resolution on the device of the
+    preview's blocks (port of fullres.render_full_dev without its mesh
+    schedules).
+
+    ``params`` is the preview StitchParams (seam masks, intensity fields
+    and gains are reused at full resolution, per return_full);
+    ``full_images`` the full-res BGR uint8 images in component order."""
+    res = params.res
+    st = params.state
+    dev = st.imgs.device
+    n = len(res.nodes)
+
+    # K rescale by the per-image width ratio (_panorama.cpp:272-288)
+    K_scaled = np.array(res.K, np.float64)
+    sizes_full = []
+    for l in range(n):
+        img = full_images[l]
+        if img is None:
+            sizes_full.append(tuple(res.sizes[l]))
+            continue
+        h0, w0 = res.sizes[l]
+        h1, w1 = img.shape[:2]
+        r = w1 / w0
+        K_scaled[l, 0, 0] *= r
+        K_scaled[l, 0, 2] *= r
+        K_scaled[l, 1, 1] *= r
+        K_scaled[l, 1, 2] *= r
+        sizes_full.append((h1, w1))
+    scale = float(K_scaled[res.center][0, 0])
+
+    sel = [i for i in range(n)
+           if res.connectivity[i] > 0 and full_images[i] is not None]
+    kind = params.proj_kind
+
+    rois_f = {i: prj.roi_for_image(kind, scale, params.rot[i], K_scaled[i],
+                                   sizes_full[i][0], sizes_full[i][1])
+              for i in sel}
+    out_h, out_w = _pad_align(max(rois_f[i][3] for i in sel),
+                              max(rois_f[i][2] for i in sel))
+    d = get_pan_dimension([(rois_f[i][0], rois_f[i][1]) for i in sel],
+                          [(rois_f[i][3], rois_f[i][2]) for i in sel])
+
+    method = ("NO" if cfg.blend == Blending.NO_BLEND else
+              "SIMPLE" if cfg.blend == Blending.SIMPLE_BLEND else "MULTI")
+    have_seams = st.seam_masks is not None
+    paste_seam = (method == "NO" and have_seams
+                  and (cfg.cut or cfg.cut_seams))
+    use_seam = (method == "MULTI" and have_seams) or paste_seam
+    use_field = cfg.blend_intensity and st.intensity is not None
+
+    # state row of each selected image (warp_all packs connectivity > 0
+    # rows in index order, matching the preview blocks)
+    state_sel = [i for i in range(n) if res.connectivity[i] > 0]
+    row_of = {i: b for b, i in enumerate(state_sel)}
+
+    m = len(sel)
+    Hs = max(sizes_full[i][0] for i in sel)
+    Ws = max(sizes_full[i][1] for i in sel)
+    Ka_b = np.zeros((m, 3, 3), np.float32)
+    R_b = np.zeros((m, 3, 3), np.float32)
+    c_b = np.zeros((m, 2), np.float32)
+    vhw_b = np.zeros((m, 2), np.int32)
+    wh_b = np.zeros((m, 2), np.int32)
+    off_b = []
+    sr_b = np.ones((m, 2), np.float32)     # seam (preview -> full) ratios
+    fr_b = np.ones((m, 2), np.float32)     # intensity-field ratios
+    g_b = np.ones((m,), np.float32)
+    for b, i in enumerate(sel):
+        h1, w1 = sizes_full[i]
+        Ka_b[b] = prj.adjusted_K(K_scaled[i], h1, w1)
+        R_b[b] = np.asarray(params.rot[i], np.float32)
+        tlx, tly, rw_f, rh_f = rois_f[i]
+        c_b[b] = (tlx, tly)
+        vhw_b[b] = (h1, w1)
+        wh_b[b] = (rw_f, rh_f)
+        off_b.append((tly - d.min_y, tlx - d.min_x))
+        _, _, rw_p, rh_p = st.rois[row_of[i]]
+        sr_b[b] = (rh_p / rh_f, rw_p / rw_f)
+        fr_b[b] = ((rh_p // 2) / rh_f, (rw_p // 2) / rw_f)
+        if params.gains is not None and cfg.gain_compensation:
+            g_b[b] = float(params.gains[row_of[i]])
+
+    # the JAX package's budget (fullres.py:443-457): MULTI holds every
+    # band level of the 4-channel blurred batch at once (~16*(bands+1)
+    # B/px) on top of the 16 B/px source concat; NO/SIMPLE stay near the
+    # flat 12 B/px estimate
+    temps = 4 * (4 * (cfg.bands + 1) + 4) if method == "MULTI" else 4 * 12
+    per_img = (Hs * Ws * (3 + 16)               # uint8 source + working copy
+               + out_h * out_w * 4 * (3 + 1 + 1)    # block + mask + seam
+               + out_h * out_w * temps)         # blur/contribution temps
+    # (the JAX package also splits four or more images into at least two
+    # chunks, so that its asynchronous uploads overlap the work; the
+    # port's upload from pageable memory waits for the stream, and the
+    # canvas does not depend on the chunking)
+    G = int(max(1, min(m, _CHUNK_BUDGET // max(1, per_img))))
+
+    color = torch.zeros((d.height + out_h, d.width + out_w, 3),
+                        dtype=torch.float32, device=dev)
+    alpha = torch.zeros((d.height + out_h, d.width + out_w),
+                        dtype=torch.float32, device=dev)
+    T = lambda a: torch.as_tensor(a, device=dev)
+    for s in range(0, m, G):
+        ids = list(range(s, min(s + G, m)))
+        src_h = np.zeros((len(ids), Hs, Ws, 3), np.uint8)
+        for k, b in enumerate(ids):
+            h1, w1 = sizes_full[sel[b]]
+            src_h[k, :h1, :w1] = full_images[sel[b]]
+        rows = [row_of[sel[b]] for b in ids]
+        _chunk_accum(
+            color, alpha, T(src_h), T(Ka_b[ids]), T(R_b[ids]), T(c_b[ids]),
+            T(vhw_b[ids]), T(wh_b[ids]), [off_b[b] for b in ids],
+            st.seam_masks[rows].to(torch.float32) if use_seam else None,
+            [tuple(map(float, sr_b[b])) for b in ids],
+            st.intensity[rows] if use_field else None,
+            [tuple(map(float, fr_b[b])) for b in ids],
+            [float(g_b[b]) for b in ids],
+            scale=scale, kind=kind, out_h=out_h, out_w=out_w,
+            bands=cfg.bands, sigma=float(cfg.sigma_blend), method=method,
+            use_seam=use_seam, use_field=use_field, paste_seam=paste_seam)
+
+    return _finalize(color, alpha, method, cfg.bands,
+                     (d.height, d.width)).cpu().numpy()

@@ -8,13 +8,15 @@ the best-connected camera -> warp all connected images -> optional
 intensity equalization -> seam masks (graph cut if ``cut``, else
 distance-transform seams for MULTI_BLEND or ``cut_seams``).
 
-get_preview: intensity adjustment, then NO_BLEND pastes (with cut masks
-when available), SIMPLE_BLEND feathers the footprints, MULTI_BLEND blends
-the seams against the footprints.
+get_preview: gain and intensity adjustment, then NO_BLEND pastes (with
+cut masks when available), SIMPLE_BLEND feathers the footprints,
+MULTI_BLEND blends the seams against the footprints.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): gain compensation, the stereographic centre fix, the full-res
-render.
+render_full: the full-resolution re-render (render.fullres), reusing the
+preview's seams, intensity fields and gains.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item): the
+stereographic centre fix.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from simplepanorama_tpu_torch.config import Blending, Config, Projection
 from simplepanorama_tpu_torch.render import exposure as expo
@@ -62,8 +65,6 @@ def set_config(res: StitchResult, images: Sequence[np.ndarray], cfg: Config,
     source (see compose.warp_all), rows indexed like ``images``."""
     from simplepanorama_tpu_torch.render import compose, graphcut
     from simplepanorama_tpu_torch.utils.timing import stage
-    if cfg.gain_compensation:
-        raise _not_ported("gain compensation", "full-res render and gain")
     if cfg.fix_center and cfg.proj == Projection.STEREOGRAPHIC:
         raise _not_ported("the stereographic centre fix",
                           "other projections and extras")
@@ -87,6 +88,10 @@ def set_config(res: StitchResult, images: Sequence[np.ndarray], cfg: Config,
         with stage("equalize"):
             st.intensity = compose.equalize_dev(st.imgs, st.masks, st.offs,
                                                 st.canvas_hw)
+    if cfg.gain_compensation:
+        with stage("gain"):
+            params.gains = compose.gain_dev(st.imgs, st.masks, st.offs,
+                                            st.canvas_hw, res.adj)
     if cfg.cut:
         seq = [n for n, _ in res.order]
         with stage("graph_cut"):
@@ -108,6 +113,10 @@ def render_preview(params: StitchParams, cfg: Config) -> np.ndarray:
     with stage("render_preview"):
         st = params.state
         imgs = st.imgs
+        if cfg.gain_compensation and params.gains is not None:
+            imgs = imgs / torch.as_tensor(params.gains, dtype=torch.float32,
+                                          device=imgs.device)[:, None, None,
+                                                              None]
         if cfg.blend_intensity and st.intensity is not None:
             imgs = compose.apply_intensity_dev(imgs, st.intensity)
         method = ("NO_BLEND" if cfg.blend == Blending.NO_BLEND else
@@ -119,8 +128,32 @@ def render_preview(params: StitchParams, cfg: Config) -> np.ndarray:
                                  cfg.sigma_blend)
 
 
-def render_full(params: StitchParams, cfg: Config, full_images) -> np.ndarray:
-    raise _not_ported("the full-resolution render", "full-res render and gain")
+def render_full(params: StitchParams, cfg: Config,
+                full_images: Sequence[Optional[np.ndarray]]) -> np.ndarray:
+    """Full-resolution re-render (stitch_parameters::return_full): rescale
+    K by the full/preview resolution ratio, re-project, resize the seam
+    masks on the device, re-blend, streamed through render.fullres.
+    ``full_images`` is indexed like the component."""
+    if cfg.fix_center and cfg.proj == Projection.STEREOGRAPHIC:
+        raise _not_ported("the stereographic centre fix",
+                          "other projections and extras")
+    from simplepanorama_tpu_torch.render.fullres import render_full_dev
+    from simplepanorama_tpu_torch.utils.timing import stage
+    with stage("render_full"):
+        return render_full_dev(params, cfg, full_images)
+
+
+def render_full_from_imageset(params: StitchParams, cfg: Config,
+                              images) -> np.ndarray:
+    """Full-res render driven by an io.ImageSet (panorama::get_panorama ->
+    return_full: full-res decode of only the connected images,
+    _image.cpp:76-91)."""
+    res = params.res
+    connected = [False] * len(images.loaded)
+    for g in res.nodes:
+        connected[g] = True
+    full = images.load_connected_images(connected, cfg.threads)
+    return render_full(params, cfg, [full[g] for g in res.nodes])
 
 
 def run_pipeline(images, cfg: Config, progress=None, cancel_token=None,

@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import defaultdict
 from typing import Dict, Sequence, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -28,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+# one lock per library, so different libraries build at the same time
+_LOCKS: Dict[str, threading.Lock] = defaultdict(threading.Lock)
+_LOCKS_GUARD = threading.Lock()
 _LIBS: Dict[str, Tuple[ctypes.CDLL, float]] = {}
 
 
@@ -47,7 +50,9 @@ def load_library(name: str, sources: Sequence[str],
 
     Returns (library, seconds spent building in this process; 0.0 when
     the cached build was reused)."""
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS[name]
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         paths = [CSRC / s for s in sources]
