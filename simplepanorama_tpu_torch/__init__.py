@@ -1,7 +1,7 @@
 """simplepanorama_tpu_torch — the panorama stitcher in PyTorch and CUDA.
 
-A port of simplepanorama_tpu (JAX/XLA/Pallas) to PyTorch for an NVIDIA
-Hopper GPU. Module names and public signatures follow the JAX package,
+A port of the JAX/XLA/Pallas package simplepanorama_tpu/ to PyTorch
+for an NVIDIA Hopper GPU. Module names and public signatures follow the JAX package,
 so each counterpart is found by path; the JAX package stays the
 reference the port is tested against. The TPU Pallas kernels become
 hand-written CUDA kernels under ``csrc/``, each with a plain PyTorch

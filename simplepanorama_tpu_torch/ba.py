@@ -14,8 +14,9 @@ model, state, residual, LM schedule, augmentation and Schur reduction.
 The LM while_loop is a Python loop with one host sync per trial. The
 per-pair H chain and its Jacobian come from torch.func.jacfwd + vmap over
 the realized camera pairs; the per-match table expansion is an index
-gather with an explicit clamp. Only the relaxed objective (fast=False)
-is ported: the Lowe objective raises NotImplementedError.
+gather with an explicit clamp. Both objectives are ported: the relaxed
+one (fast=False) and Lowe's (fast=True), which keeps b = t fixed and
+solves U* da = e_A.
 """
 
 from __future__ import annotations
@@ -117,17 +118,22 @@ def _pair_tables(data: BAData, c6, with_jac: bool):
     return Ht, jac, pid
 
 
-def residuals(cams: CamState, data: BAData, active_m) -> torch.Tensor:
-    """(M, 4) residuals of the relaxed objective, zero on inactive slots."""
+def residuals(cams: CamState, data: BAData, active_m,
+              fast: bool = False) -> torch.Tensor:
+    """(M, 4) residuals, zero on inactive slots; the Lowe objective
+    (``fast``) projects the train keypoints, b = t."""
+    b = data.t if fast else cams.b
     Ht, _, pid = _pair_tables(data, _cam6(cams), with_jac=False)
-    _, p2, _ = _match_geometry(Ht[pid], cams.b)
-    r = torch.cat([data.t - cams.b, data.q - p2], -1)
+    _, p2, _ = _match_geometry(Ht[pid], b)
+    r = torch.cat([data.t - b, data.q - p2], -1)
     return torch.where(active_m[:, None], r, torch.zeros_like(r))
 
 
-def total_error(cams: CamState, data: BAData, active_m) -> torch.Tensor:
+def total_error(cams: CamState, data: BAData, active_m,
+                fast: bool = False) -> torch.Tensor:
     """Sum over active matches of ||r_m|| (the reference's metric)."""
-    return torch.linalg.norm(residuals(cams, data, active_m), dim=-1).sum()
+    return torch.linalg.norm(residuals(cams, data, active_m, fast),
+                             dim=-1).sum()
 
 
 class _JacCache(NamedTuple):
@@ -136,18 +142,16 @@ class _JacCache(NamedTuple):
     eA: torch.Tensor          # (6N,)
     aug: torch.Tensor         # (6N,) diagonal augmentation scales
     focal_last: torch.Tensor  # scalar, V-augment reference quirk
-    W: torch.Tensor           # (M, 6N, 2)
-    V: torch.Tensor           # (M, 2, 2)
-    eB: torch.Tensor          # (M, 2)
+    W: torch.Tensor           # (M, 6N, 2), or a placeholder in fast mode
+    V: torch.Tensor           # (M, 2, 2), or a placeholder
+    eB: torch.Tensor          # (M, 2), or a placeholder
 
 
-def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
-                    n_cams: int, vaug_idx=None) -> _JacCache:
-    """Jacobian-dependent half of the assemble: dense block-sparse J
-    (M, 2, 6N) from one-hot camera masks, then U = J^T J, e_A = -J^T r,
-    V, e_B and W = J^T B."""
-    N = n_cams
-    b = cams.b
+def _jacobian_streams(cams: CamState, data: BAData, active_m, fast: bool):
+    """Per-match chain rule, zero on inactive slots: residuals r (M, 4),
+    the camera blocks of the projected rows Ai23, Aj23 (M, 2, 6) and the
+    b-Jacobian B (M, 4, 2), whose rows 2:4 are the projected ones."""
+    b = data.t if fast else cams.b
     Ht, (Dit, Djt), pid = _pair_tables(data, _cam6(cams), with_jac=True)
     Hm = Ht[pid]
     bh, p2, Jp = _match_geometry(Hm, b)
@@ -165,6 +169,17 @@ def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
     m_eye = (-torch.eye(2, dtype=B23.dtype, device=B23.device)).expand(B23.shape)
     B = torch.cat([m_eye, B23], 1)                            # (M,4,2)
     B = torch.where(msk, B, torch.zeros_like(B))
+    return r, Ai23, Aj23, B
+
+
+def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
+                    n_cams: int, vaug_idx=None,
+                    fast: bool = False) -> _JacCache:
+    """Jacobian-dependent half of the assemble: dense block-sparse J
+    (M, 2, 6N) from one-hot camera masks, then U = J^T J, e_A = -J^T r
+    and, in the relaxed objective, V, e_B and W = J^T B."""
+    N = n_cams
+    r, Ai23, Aj23, B = _jacobian_streams(cams, data, active_m, fast)
 
     # camera masks; an id outside the (cropped) camera table gives a zero
     # row, as jax.nn.one_hot does
@@ -182,16 +197,13 @@ def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
         (cams.focal[:, None] * _AUG_FOCAL).repeat(1, 3),
         torch.full((N, 3), _AUG_ANG, dtype=U.dtype, device=U.device)],
         1).reshape(-1)
-    # V augment focal: the reference uses the LAST active camera's focal
-    if vaug_idx is None:
-        idx = torch.arange(N, device=U.device)
-        last = torch.where(cam_active, idx, torch.zeros_like(idx)).max()
-    else:
-        last = vaug_idx
-    focal_last = cams.focal[last]
+    focal_last = _focal_last(cams, cam_active, vaug_idx)
+    if fast:
+        z = U.new_zeros
+        return _JacCache(U=U, eA=eA, aug=aug, focal_last=focal_last,
+                         W=z((1, 1, 2)), V=z((1, 2, 2)), eB=z((1, 2)))
 
-    V = (B[:, :, :, None] * B[:, :, None, :]).sum(1)          # (M,2,2)
-    eB = -(B * r[:, :, None]).sum(1)                          # (M,2)
+    V, eB = _v_and_eb(B, r)
     W = torch.stack(
         [Jd[:, 0, :] * B[:, 2, 0, None] + Jd[:, 1, :] * B[:, 3, 0, None],
          Jd[:, 0, :] * B[:, 2, 1, None] + Jd[:, 1, :] * B[:, 3, 1, None]],
@@ -200,41 +212,80 @@ def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
                      W=W, V=V, eB=eB)
 
 
-def _schur_solve_system(cache: _JacCache, active_m, lam, cam_active):
-    """Lambda-dependent half: diagonal augmentation, V inverse, Schur
-    reduction. Returns (S, rhs, Vinv)."""
-    U_aug = cache.U + torch.diag(torch.diagonal(cache.U) * lam * cache.aug)
-    W, V, eB = cache.W, cache.V, cache.eB
-    aug_l = 1.0 + lam * cache.focal_last * _AUG_FOCAL
+def _focal_last(cams: CamState, cam_active, vaug_idx=None):
+    """V augment focal: the reference uses the LAST active camera's focal
+    (``vaug_idx`` when the caller renumbered the cameras)."""
+    if vaug_idx is None:
+        idx = torch.arange(cam_active.shape[0], device=cam_active.device)
+        vaug_idx = torch.where(cam_active, idx, torch.zeros_like(idx)).max()
+    return cams.focal[vaug_idx]
+
+
+def _v_and_eb(B, r):
+    """Per-match V = B^T B (M, 2, 2) and e_B = -B^T r (M, 2)."""
+    return ((B[:, :, :, None] * B[:, :, None, :]).sum(1),
+            -(B * r[:, :, None]).sum(1))
+
+
+def _v_inverse(V, focal_last, lam, active_m):
+    """(M, 2, 2) inverse of the augmented V, zero on inactive slots."""
+    aug_l = 1.0 + lam * focal_last * _AUG_FOCAL
     v00, v01 = V[:, 0, 0] * aug_l, V[:, 0, 1]
     v10, v11 = V[:, 1, 0], V[:, 1, 1] * aug_l
     det = v00 * v11 - v01 * v10
     det = torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
     Vinv = torch.stack([torch.stack([v11, -v01], -1),
                         torch.stack([-v10, v00], -1)], -2) / det[:, None, None]
-    Vinv = torch.where(active_m[:, None, None], Vinv, torch.zeros_like(Vinv))
+    return torch.where(active_m[:, None, None], Vinv, torch.zeros_like(Vinv))
 
-    # YW = sum_m W V^-1 W^T = Z^T Z with Z = W L, L the 2x2 Cholesky of V^-1
+
+def _cholesky_streams(Vinv, eB):
+    """(l00, l10, l11) of the 2x2 Cholesky L of V^-1 (YW = Z^T Z with
+    Z = W L) and (g0, g1) = V^-1 e_B, each (M,)."""
     l00 = torch.sqrt(torch.clamp(Vinv[:, 0, 0], min=0.0))
     safe = torch.where(l00 > 0.0, l00, torch.ones_like(l00))
     l10 = Vinv[:, 1, 0] / safe
     l11 = torch.sqrt(torch.clamp(Vinv[:, 1, 1] - l10 * l10, min=0.0))
-    Z0 = W[:, :, 0] * l00[:, None] + W[:, :, 1] * l10[:, None]
-    Z1 = W[:, :, 1] * l11[:, None]
-    YW = torch.einsum("ma,mb->ab", Z0, Z0) + torch.einsum("ma,mb->ab", Z1, Z1)
     g0 = Vinv[:, 0, 0] * eB[:, 0] + Vinv[:, 0, 1] * eB[:, 1]
     g1 = Vinv[:, 1, 0] * eB[:, 0] + Vinv[:, 1, 1] * eB[:, 1]
-    yeb = (torch.einsum("ma,m->a", W[:, :, 0], g0)
-           + torch.einsum("ma,m->a", W[:, :, 1], g1))
-    S = U_aug - YW
-    rhs = cache.eA - yeb
+    return l00, l10, l11, g0, g1
 
-    # inactive cameras: identity diagonal block, zero rhs -> zero delta
+
+def _schur_solve_system(cache: _JacCache, active_m, lam, cam_active,
+                        fast: bool = False):
+    """Lambda-dependent half: diagonal augmentation and, in the relaxed
+    objective, V inverse and Schur reduction. Returns (S, rhs, Vinv);
+    Vinv is None in fast mode, where S = U* and rhs = e_A."""
+    U_aug = _augment(cache.U, lam, cache.aug)
+    if fast:
+        S, rhs, Vinv = U_aug, cache.eA, None
+    else:
+        W, eB = cache.W, cache.eB
+        Vinv = _v_inverse(cache.V, cache.focal_last, lam, active_m)
+        l00, l10, l11, g0, g1 = _cholesky_streams(Vinv, eB)
+        Z0 = W[:, :, 0] * l00[:, None] + W[:, :, 1] * l10[:, None]
+        Z1 = W[:, :, 1] * l11[:, None]
+        YW = (torch.einsum("ma,mb->ab", Z0, Z0)
+              + torch.einsum("ma,mb->ab", Z1, Z1))
+        yeb = (torch.einsum("ma,m->a", W[:, :, 0], g0)
+               + torch.einsum("ma,m->a", W[:, :, 1], g1))
+        S = U_aug - YW
+        rhs = cache.eA - yeb
+    S, rhs = _mask_inactive(S, rhs, cam_active)
+    return S, rhs, Vinv
+
+
+def _augment(U, lam, aug):
+    """U* = U with its diagonal scaled by (1 + lam * aug)."""
+    return U + torch.diag(torch.diagonal(U) * lam * aug)
+
+
+def _mask_inactive(S, rhs, cam_active):
+    """Inactive cameras: identity diagonal block, zero rhs -> zero delta."""
     act6 = cam_active.repeat_interleave(6)
     S = torch.where(act6[:, None] & act6[None, :], S, torch.zeros_like(S))
     S = S + torch.diag(torch.where(act6, 0.0, 1.0).to(S.dtype))
-    rhs = torch.where(act6, rhs, torch.zeros_like(rhs))
-    return S, rhs, Vinv
+    return S, torch.where(act6, rhs, torch.zeros_like(rhs))
 
 
 def _solve_preconditioned(S, rhs):
@@ -248,13 +299,15 @@ def _solve_preconditioned(S, rhs):
 
 def _apply_delta(cams: CamState, da, db, cam_active, active_m):
     """Trial state from deltas; rotation frozen for identity-rotation
-    cameras (gauge anchor, add_delta)."""
+    cameras (gauge anchor, add_delta). ``db`` is None in fast mode, which
+    leaves b alone."""
     N = cams.focal.shape[0]
     da = da.reshape(N, 6)
     da = torch.where(cam_active[:, None], da, torch.zeros_like(da))
     frozen = torch.linalg.norm(cams.rotvec, dim=-1) < 1e-6
     rotvec = torch.where(frozen[:, None], cams.rotvec, cams.rotvec + da[:, 3:6])
-    b = cams.b + torch.where(active_m[:, None], db, torch.zeros_like(db))
+    b = cams.b if db is None else \
+        cams.b + torch.where(active_m[:, None], db, torch.zeros_like(db))
     return CamState(cams.focal + da[:, 0], cams.ppal + da[:, 1:3], rotvec, b)
 
 
@@ -270,29 +323,29 @@ def lm_run_impl(cams: CamState, data: BAData, cam_active: torch.Tensor,
                 lambda0, fast: bool = False, max_iter: int = 50,
                 vaug_idx: Optional[int] = None) -> LMResult:
     """Full LM optimization over the active subproblem, as a host loop
-    with one sync per trial (the accept test)."""
-    if fast:
-        raise NotImplementedError(
-            "the Lowe objective (Config.fast=True) is not ported yet "
-            "(ROADMAP: port queue, bundle adjustment)")
+    with one sync per trial (the accept test). ``fast`` selects the
+    Lowe objective."""
     N = cams.focal.shape[0]
     # ids beyond a cropped camera table clamp, like a JAX gather
     active_m = (data.m_valid & cam_active[torch.clamp(data.mi, max=N - 1)]
                 & cam_active[torch.clamp(data.mj, max=N - 1)])
     cur = cams
-    err = total_error(cams, data, active_m)
+    err = total_error(cams, data, active_m, fast)
     lam = torch.as_tensor(lambda0, dtype=torch.float32,
                           device=cams.focal.device)
     it = strikes = n_acc = 0
     while it < max_iter and strikes <= 5:
         cache = _assemble_cache(cur, data, active_m, cam_active, N,
-                                vaug_idx=vaug_idx)
-        S, rhs, Vinv = _schur_solve_system(cache, active_m, lam, cam_active)
+                                vaug_idx=vaug_idx, fast=fast)
+        S, rhs, Vinv = _schur_solve_system(cache, active_m, lam, cam_active,
+                                           fast)
         da = _solve_preconditioned(S, rhs)
-        wtd = (cache.W * da[None, :, None]).sum(1)
-        db = (Vinv * (cache.eB - wtd)[:, None, :]).sum(2)
+        db = None
+        if not fast:
+            wtd = (cache.W * da[None, :, None]).sum(1)
+            db = (Vinv * (cache.eB - wtd)[:, None, :]).sum(2)
         trial = _apply_delta(cur, da, db, cam_active, active_m)
-        err_new = total_error(trial, data, active_m)
+        err_new = total_error(trial, data, active_m, fast)
         if bool((err_new < err) & torch.isfinite(err_new)):
             cur, err = trial, err_new
             lam = lam * 0.1

@@ -78,12 +78,20 @@ def _minplus_scan(d, lo, dim: int, reverse: bool):
     return out.flip(dim) if reverse else out
 
 
-def _relax_scan(caps, d, node, n_pass: int, sentinel: int):
+def _tally(stats, key, n):
+    """Add ``n`` (an int or a device scalar, so no host sync) to
+    ``stats[key]`` when the caller asked for stats."""
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
+
+
+def _relax_scan(caps, d, node, n_pass: int, sentinel: int, stats=None):
     """Passes of down/up/right/left min-plus scans over integer distances
     ``d`` (int64, ``sentinel`` for INF) until a pass changes nothing (one
     host sync per pass) or ``n_pass`` passes ran: the fixpoint of
     d[p] = min(d[p], d[q] + 1) over residual edges p -> q, restricted to
-    the node set."""
+    the node set. ``stats["scan_cells"]`` counts the node cells of every
+    pass."""
     H, W = d.shape
     # a scan never raises a distance, so every value stays <= sentinel
     big = 2 * sentinel + 8 * (H + W)
@@ -107,12 +115,13 @@ def _relax_scan(caps, d, node, n_pass: int, sentinel: int):
         d = _minplus_scan(d, lo_right, 1, False)
         d = _minplus_scan(d, lo_left, 1, True)
         d = torch.where(node & (d < sentinel), d, unreach)
+        _tally(stats, "scan_cells", node.sum())
         if not bool((d < prev).any()):
             break
     return d
 
 
-def _dist_to_sink_scan(caps, demand, node, n_pass: int):
+def _dist_to_sink_scan(caps, demand, node, n_pass: int, stats=None):
     """BFS distance to the nearest sink-demand node by _relax_scan.
     Distances are exact small integers, carried as int64 with a sentinel
     above every reachable distance for INF."""
@@ -121,7 +130,7 @@ def _dist_to_sink_scan(caps, demand, node, n_pass: int):
     unreach = torch.full(demand.shape, sentinel, dtype=torch.int64,
                          device=demand.device)
     d = torch.where(demand & node, torch.zeros_like(unreach), unreach)
-    d = _relax_scan(caps, d, node, n_pass, sentinel)
+    d = _relax_scan(caps, d, node, n_pass, sentinel, stats)
     return torch.where(d < sentinel, d.to(torch.float32),
                        torch.full_like(caps[0], _INF))
 
@@ -176,9 +185,14 @@ def _push_phase(caps, e, h, interior=None):
 def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
                     excess0: torch.Tensor, node: torch.Tensor,
                     max_outer: int = 400, inner_iters: int = 30,
-                    sweep_iters: int = 0) -> torch.Tensor:
+                    sweep_iters: int = 0, stats=None) -> torch.Tensor:
     """Plain PyTorch solver (port of _mincut_core with the scan BFS).
-    The outer while_loop is a Python loop with one host sync per round."""
+    The outer while_loop is a Python loop with one host sync per round.
+
+    With a dict ``stats`` it also counts the work these inputs needed:
+    ``outer`` rounds, ``push_cells`` (node cells holding positive excess
+    at the start of each push phase, the ones that push or relabel) and
+    ``scan_cells`` (node cells of every BFS scan pass)."""
     H, W = cap_h.shape
     if sweep_iters <= 0:
         sweep_iters = H + W + 4
@@ -186,24 +200,34 @@ def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
     caps, e = _init_state(cap_h, cap_v, excess0, node)
 
     def bfs():
-        return _dist_to_sink_scan(caps, e < 0, node, sweep_iters)
+        return _dist_to_sink_scan(caps, e < 0, node, sweep_iters, stats)
 
     d = bfs()
     it = 0
     while it < max_outer and bool(((e > 0) & (d < _INF)).any()):
         h = d
         for _ in range(inner_iters):
+            _tally(stats, "push_cells", ((e > 0) & node).sum())
             e, h = _push_phase(caps, e, h)
         d = bfs()
         it += 1
+    _finish_stats(stats, it)
     return (d >= _INF) & node
+
+
+def _finish_stats(stats, outer: int):
+    """The plain solvers' stats as host ints."""
+    if stats is not None:
+        stats["outer"] = outer
+        for k in ("push_cells", "scan_cells"):
+            stats[k] = int(stats.get(k, 0))
 
 
 def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
                           excess0: torch.Tensor, node: torch.Tensor,
                           max_outer: int = 400, inner_iters: int = 30,
                           sweep_iters: int = 0,
-                          tile_rows: int = 512) -> torch.Tensor:
+                          tile_rows: int = 512, stats=None) -> torch.Tensor:
     """Plain PyTorch version of the row-tiled solver (the TPU kernel
     _mincut_tiled_kernel, maxflow.py:411-663, as grid_mincut_pallas_tiled
     calls it). The state lives in whole-grid planes with 8 guard rows
@@ -224,7 +248,8 @@ def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
 
     The TPU's 128-column padding serves only Mosaic's layout (padded
     columns are not nodes) and is left out. One host sync per tile peek
-    and per BFS pass."""
+    and per BFS pass. ``stats`` as grid_mincut_ref: a skipped tile pushes
+    no cell, and a tile's scans count the node cells of its view."""
     H, W = cap_h.shape
     Tr = min(tile_rows, (H + 7) // 8 * 8)
     T = (H + Tr - 1) // Tr
@@ -255,7 +280,7 @@ def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
                          torch.full(dv.shape, sentinel, dtype=torch.int64,
                                     device=dev))
         di = _relax_scan([c[v0:v1] for c in caps], di, nd, sweep_iters,
-                         sentinel)
+                         sentinel, stats)
         out = torch.where(di < sentinel, di.to(torch.float32),
                           torch.full_like(dv, _INF))
         d[v0 + 8:v0 + 8 + Tr] = out[8:8 + Tr]
@@ -277,8 +302,10 @@ def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
 
     def push_tile(t):
         r0 = t * Tr + 8
-        if not bool(((e[r0:r0 + Tr] > 0) & node_p[r0:r0 + Tr]).any()):
+        n_active = ((e[r0:r0 + Tr] > 0) & node_p[r0:r0 + Tr]).sum()
+        if not bool(n_active):
             return
+        _tally(stats, "push_cells", n_active)
         # the interior and one row each side: flow from the interior only
         # reaches the first halo row, the other halo rows stay unchanged
         s0, s1 = r0 - 1, r0 + Tr + 1
@@ -300,6 +327,7 @@ def grid_mincut_tiled_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
                 push_tile(t)
         bfs()
         it += 1
+    _finish_stats(stats, it)
     return ((d >= _INF) & node_p)[8:8 + H]
 
 

@@ -2,9 +2,11 @@
 
 Port of simplepanorama_tpu/pipeline.py (the reference's headless path,
 pan::panorama): construct with image paths and a device, `stitch(config)`,
-then `get_preview()` and `get_panorama()`. Progress is reported through a
-callback and cancellation through a token polled at stage boundaries. The
-JAX package's background prefetch of the full-res sources is not ported.
+then `get_preview()` and `get_panorama()`; `save_state()` and
+`Panorama.from_state()` checkpoint the post-BA state and resume from it.
+Progress is reported through a callback and cancellation through a token
+polled at stage boundaries. The JAX package's background prefetch of the
+full-res sources is not ported.
 
 The device is explicit: ``device="cuda"`` runs on the GPU and raises when
 no GPU is present; the CPU is used only when asked for. The entry points
@@ -21,7 +23,6 @@ import numpy as np
 import torch
 
 from simplepanorama_tpu_torch.config import Config
-from simplepanorama_tpu_torch.stitcher import _not_ported
 
 
 class StitchCancelled(RuntimeError):
@@ -165,8 +166,34 @@ class Panorama:
                         roi)
 
     def save_state(self, path) -> None:
-        raise _not_ported("save_state", "checkpoint")
+        """Checkpoint the post-BA stitch state (rot/K/adjacency/order) so
+        compositing can later resume, with any blend/projection/seam
+        settings, without features, matching or BA."""
+        from simplepanorama_tpu_torch.utils.checkpoint import \
+            save_stitch_state
+        if self.result is None:
+            raise RuntimeError("stitch() has not been run")
+        save_stitch_state(path, self.result, paths=self.images.loaded)
 
     @classmethod
-    def from_state(cls, path, paths=None, config=None, progress=None):
-        raise _not_ported("from_state", "checkpoint")
+    def from_state(cls, path, paths: Optional[Sequence[str]] = None,
+                   config: Optional[Config] = None,
+                   progress: Optional[Callable[[float, str], None]] = None,
+                   device="cuda") -> "Panorama":
+        """Resume from a checkpoint written by save_state (by either
+        package): reload the images at init_size, rebuild the compositing
+        state under ``config`` on ``device``, and return a Panorama ready
+        for get_preview() / get_panorama(). ``paths`` overrides the image
+        list recorded in the checkpoint (same order as at save time;
+        res.nodes indexes into it)."""
+        from simplepanorama_tpu_torch.utils.checkpoint import \
+            load_stitch_state
+        res, saved_paths = load_stitch_state(path, with_paths=True)
+        if paths is None:
+            paths = saved_paths
+        if not paths:
+            raise RuntimeError("checkpoint has no image list; pass paths=")
+        p = cls(paths, progress, device=device)
+        p.result = res
+        p.set_config(config or Config())
+        return p

@@ -169,11 +169,8 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                             cancelled: Optional[Callable[[], bool]] = None,
                             device="cpu") -> StitchResult:
     """Run the incremental BA over one connected component; ``sizes`` are
-    (h, w) of the global image list, ``focal`` the scene estimate."""
-    if cfg.fast:
-        raise NotImplementedError(
-            "the Lowe objective (Config.fast=True) is not ported yet "
-            "(ROADMAP: port queue, bundle adjustment)")
+    (h, w) of the global image list, ``focal`` the scene estimate.
+    ``cfg.fast`` selects the Lowe objective."""
     nodes = comp.nodes
     n = len(nodes)
     order = order_nodes_by_connection(comp.adj + comp.adj.T)
@@ -234,7 +231,7 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             cams_c = _add_camera(cams_c, l, order_conns[l], H_pair[l])
             active_c[l] = True
             cams_c = ba.lm_run_impl(cams_c, data_c, active_c,
-                                    float(cfg.lambda_),
+                                    float(cfg.lambda_), fast=bool(cfg.fast),
                                     vaug_idx=int(vaug[l])).cams
         cams = ba.CamState(
             focal=torch.cat([cams_c.focal, cams.focal[n_cap:]]),

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card; they skip without one.
 
-The hand-written min-cut kernels against their plain PyTorch versions,
-and the port on the card against the port on the CPU. This file imports no
+The hand-written kernels (both min-cuts and the BA normal-equation
+assembly) against their plain PyTorch versions, and the port on the card
+against the port on the CPU. This file imports no
 JAX, so it runs on a machine that has only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,7 +16,7 @@ from simplepanorama_tpu_torch import Config, Panorama
 from simplepanorama_tpu_torch.adjacency import torch_pair_draws
 from simplepanorama_tpu_torch.fixtures import cut_grid, fkh360_views
 from simplepanorama_tpu_torch.stitch import StitchResult
-from simplepanorama_tpu_torch.ops import maxflow
+from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
 from simplepanorama_tpu_torch.render import graphcut
 from simplepanorama_tpu_torch.render.compose import ComposeState
 
@@ -140,3 +141,42 @@ def test_get_panorama_card_matches_cpu(cuda, tmp_path):
     (prev_c, full_c), (prev_g, full_g) = out["cpu"], out["cuda"]
     assert prev_c.shape == prev_g.shape and full_c.shape == full_g.shape
     assert _ncc(prev_c, prev_g) >= 0.98 and _ncc(full_c, full_g) >= 0.98
+
+
+def _ba_streams(M, N, seed, dev):
+    """Random BA streams (the shapes of ops/ba_kernel.assemble_streams),
+    with a tenth of the camera ids outside [0, N) and some mi == mj."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    mi = rng.integers(0, N, M)
+    mj = rng.integers(0, N, M)
+    mi[::10] = N + 1
+    mj[5::10] = -1
+    host = [f32(M, 2, 6), f32(M, 2, 6), f32(M, 2, 2), f32(M, 2),
+            rng.uniform(0.5, 1, M).astype(np.float32), f32(M),
+            rng.uniform(0.5, 1, M).astype(np.float32), f32(M), f32(M),
+            mi.astype(np.int64), mj.astype(np.int64)]
+    return [torch.from_numpy(a).to(dev) for a in host]
+
+
+@pytest.mark.parametrize("with_schur", [True, False])
+@pytest.mark.parametrize("N,M,seed", [(8, 1024, 0), (16, 384, 1),
+                                      (40, 20480, 2)])
+def test_ba_kernel_matches_plain_version(cuda, N, M, seed, with_schur):
+    """assemble_streams (the CUDA kernel) against assemble_streams_ref on
+    the same card: every output within 1e-3 * max|plain| + 1e-4 (the TPU
+    kernel's test bound; the sums run in another order); one launch
+    counted per call. M = 384 is not a multiple of 512 but is one of
+    min(512, M)."""
+    args = _ba_streams(M, N, seed, cuda)
+    before = ba_kernel.assemble_streams.launches
+    got = ba_kernel.assemble_streams(*args, N, with_schur=with_schur)
+    assert ba_kernel.assemble_streams.launches == before + 1
+    want = ba_kernel.assemble_streams_ref(*args, N, with_schur=with_schur)
+    torch.cuda.synchronize()
+    for name, g, w in zip(["U", "eA", "YW", "yeb"], got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err = float((g - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max()) + 1e-4, (name, err)
+    if not with_schur:
+        assert not got[2].any() and not got[3].any()

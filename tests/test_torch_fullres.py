@@ -223,25 +223,14 @@ def test_get_panorama_matches_jax(tmp_path):
     assert pt._full_pano is None
 
 
-@pytest.mark.parametrize("entry", ["cli", "save_state", "from_state",
-                                   "stereographic_fix", "fast_ba"])
-def test_unported_entry_points_raise(entry, tmp_path):
+@pytest.mark.parametrize("entry", ["stereographic_fix"])
+def test_unported_entry_points_raise(entry):
     """What the port does not cover yet raises NotImplementedError naming
     its ROADMAP item ("ROADMAP: port queue, ..."), before any work."""
-    from simplepanorama_tpu_torch import cli, stitch
     from simplepanorama_tpu_torch.config import Projection
     imgs, full, res = _views()
     tres = stitch_result_from_numpy(res)
+    cfg = {"stereographic_fix": TConfig(proj=Projection.STEREOGRAPHIC,
+                                        fix_center=True)}[entry]
     with pytest.raises(NotImplementedError, match="ROADMAP: port queue"):
-        if entry == "cli":
-            cli.main([])
-        elif entry == "save_state":
-            T.Panorama([], device="cpu").save_state(tmp_path / "s.npz")
-        elif entry == "from_state":
-            T.Panorama.from_state(tmp_path / "s.npz")
-        elif entry == "stereographic_fix":
-            tstitcher.set_config(tres, imgs, TConfig(
-                proj=Projection.STEREOGRAPHIC, fix_center=True))
-        else:
-            stitch.bundle_adjust_stitching(None, None, [], 1.0,
-                                           TConfig(fast=True))
+        tstitcher.set_config(tres, imgs, cfg)

@@ -88,6 +88,31 @@ def test_auto_dispatches_on_cells_without_crop(monkeypatch, limit, want):
     assert side.shape == (24, 32) and not side[:, 20:].any()
 
 
+@pytest.mark.parametrize("solver", ["whole", "tiled"])
+def test_plain_stats_count_the_work_without_changing_the_cut(solver):
+    """With a ``stats`` dict the plain solvers return the same sides and
+    count their work: outer rounds, cells holding excess in the push
+    phases (at most every node in each of the 30 phases of a round) and
+    node cells of the BFS scan passes (whole grid: a whole number of
+    passes over the nodes, at least one per BFS)."""
+    t = [torch.from_numpy(a) for a in _grid(24, 32, 1)]
+    run = (tmf.grid_mincut_ref if solver == "whole" else
+           lambda *a, **k: tmf.grid_mincut_tiled_ref(*a, tile_rows=8, **k))
+    stats = {}
+    side = run(*t, stats=stats)
+    assert torch.equal(side, run(*t))
+    nodes = int(t[3].sum())
+    assert stats["outer"] >= 1
+    assert 0 < stats["push_cells"] <= stats["outer"] * 30 * nodes
+    assert all(isinstance(stats[k], int) for k in ("push_cells",
+                                                     "scan_cells"))
+    if solver == "whole":
+        assert stats["scan_cells"] % nodes == 0
+        assert stats["scan_cells"] >= (stats["outer"] + 1) * nodes
+    else:
+        assert stats["scan_cells"] > 0
+
+
 def test_tiled_wrapper_takes_plain_path_on_cpu():
     """On CPU tensors grid_mincut_tiled runs grid_mincut_tiled_ref (same
     sides) and counts no kernel launch; bad inputs raise as for
