@@ -13,10 +13,19 @@ Phases, each printing one line per input:
           PyTorch) on the card: a 48x160 random grid with a hole, and a
           seam graph built by render/graphcut._build_cut_graph from two
           overlapping 700-px views at the packed block shape of slice 1;
+          each line also has the solver's counters (outer rounds, BFS
+          rounds, launches, host reads, device ns in push blocks and in
+          BFSs) and the device ms of one solve by CUDA kernel name; then
+          kernel 2 against kernel 1 on the seam graph, where kernel 1
+          must keep its tiles resident (cut values within 1e-3);
   kernel2 grid_mincut_tiled (kernel 2) against grid_mincut_tiled_ref on
           the 48x160 grid and on a seam graph from two 1400-px views at
           the block shape of slice 2 (over 1.2M cells), with kernel 1 on
-          the same seam graph beside it;
+          the same seam graph beside it (there it takes kernel 2's route);
+  crossover kernels 1 and 2 on seam graphs from two views of 850 to
+          1000 px (kernel 1's route, both ms and cut values), and one BFS
+          (maxflow.dist_to_sink) of each on a 128x128 serpentine maze:
+          ms per unit of sink distance;
   kernel3 assemble_streams (kernel 3) against assemble_streams_ref, with
           and without the Schur terms, on random streams (N=8, M=1024 and
           N=40, M=20,480); the same on slice 3's own BA problem follows
@@ -196,12 +205,38 @@ def _solve_pair(torch, maxflow, name, graph, kernel, plain, reps,
           cells=int(node.size), nodes=int(node.sum()), cut_kernel=vk,
           cut_plain=vr, side_agreement=agree, kernel_ms=ms_k,
           plain_ms=ms_r, solver_stats=stats, plain_stats=plain_stats,
+          device_ms_by_kernel=_device_ms_by_kernel(torch, kernel, graph),
           device=card)
     if not (abs(vk - vr) <= 1e-3 * max(1.0, abs(vr)) and agree >= 0.999):
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain "
                            f"version on {name}: cut {vk} vs {vr}, "
                            f"agreement {agree}")
     return abs(vk - vr), ms_k, ms_r, plain_stats
+
+
+def _kernel_pair(torch, maxflow, name, graph, reps, card, phase, **extra):
+    """Kernel 1 (grid_mincut) and kernel 2 (grid_mincut_tiled) on the same
+    tensors: their cut values (float64 recount) within 1e-3 relative,
+    their ms, and kernel 1's route ("resident" tiles, or kernel 2's
+    "tiled" route where its tiles do not fit); prints one line and
+    returns it."""
+    host = [t.cpu().numpy() for t in graph]
+    out = {}
+    for k, fn in (("kernel1", maxflow.grid_mincut),
+                  ("kernel2", maxflow.grid_mincut_tiled)):
+        side = fn(*graph)
+        out[k + "_stats"] = dict(fn.last_stats)
+        out["cut_" + k] = maxflow.cut_value(*host, side)
+        out[k + "_ms"] = _time_ms(torch, fn, graph, reps)
+    out["kernel1_route"] = ("resident" if out["kernel1_stats"]["resident"]
+                            else "tiled")
+    _line(phase, input=name, shape=list(graph[0].shape),
+          cells=int(graph[0].numel()), **out, **extra, device=card)
+    v1, v2 = out["cut_kernel1"], out["cut_kernel2"]
+    if abs(v1 - v2) > 1e-3 * max(1.0, abs(v1)):
+        raise RuntimeError(f"kernels 1 and 2 disagree on {name}: {v1} vs "
+                           f"{v2}")
+    return out
 
 
 def _reset_launches(maxflow):
@@ -247,16 +282,18 @@ def _bound(n_bytes, n_ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def _mincut_bound(shape, plain_stats):
+def _mincut_bound(node, plain_stats):
     """Bound of one min cut on these inputs: each input (three f32 planes
     and the node mask) read once and the side written once, 14 B per
     cell; the work counted by the plain version's run on the same inputs
     (not by the kernel under test): 36 f32 operations per cell that holds
-    excess in a push phase (4 pushes and the relabel) and 12 per node
-    cell of every BFS scan pass (4 min-plus scans)."""
-    cells = shape[0] * shape[1]
-    ops = 36 * plain_stats["push_cells"] + 12 * plain_stats["scan_cells"]
-    return _bound(14 * cells, ops)
+    excess in a push phase (4 pushes and the relabel), and per BFS (one
+    before the first outer round and one after each) 12 per node cell,
+    each cell visited once (a relaxation of its 4 edges), whatever
+    number of scan passes the plain version's BFS takes."""
+    n_bfs = plain_stats["outer"] + 1
+    ops = 36 * plain_stats["push_cells"] + 12 * n_bfs * int(node.sum())
+    return _bound(14 * node.numel(), ops)
 
 
 def _ba_bound(mi, mj, n_cams, with_schur):
@@ -373,6 +410,25 @@ def _device_ms(torch, fn, args, names, reps=5):
     return us / reps / 1e3 if us > 0 else None
 
 
+def _device_ms_by_kernel(torch, fn, args, reps=2):
+    """Device ms per call of ``fn`` by CUDA kernel name, from
+    torch.profiler over ``reps`` calls; {} when the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[e.key[:96]] = us / reps / 1e3
+    return out
+
+
 @contextlib.contextmanager
 def _count_lm(ba):
     """Count the incremental bundle adjustment's LM runs, their trials
@@ -468,7 +524,8 @@ def main():
     import cv2
     from simplepanorama_tpu_torch import Config, Panorama, cli
     from simplepanorama_tpu_torch import ba, stitch as tstitch
-    from simplepanorama_tpu_torch.fixtures import cut_grid, fkh360_views
+    from simplepanorama_tpu_torch.fixtures import (cut_grid, fkh360_views,
+                                                   maze_grid)
     from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
     from simplepanorama_tpu_torch.utils.checkpoint import load_stitch_state
     from simplepanorama_tpu_torch.pipeline import full_precision
@@ -513,7 +570,14 @@ def main():
                 maxflow.grid_mincut_ref, 5, 5, card, "kernel")
             errs1.append(err)
         # the seam graph's times and bound are reported
-        timing1 = (ms_k, ms_r, _mincut_bound(graph[0].shape, stats))
+        timing1 = (ms_k, ms_r, _mincut_bound(graph[3], stats))
+        # kernel 2 on the seam700 block, where kernel 1 keeps its tiles
+        # resident: two different solvers on one input
+        pair = _kernel_pair(torch, maxflow, "seam700", graph, 3, card,
+                            "kernel")
+        if pair["kernel1_route"] != "resident":
+            raise RuntimeError("kernel 1 did not keep the seam700 block "
+                               "resident")
 
         # ---- kernel 2 vs its plain version; kernel 1 beside it ----
         errs2 = []
@@ -530,19 +594,28 @@ def main():
                 maxflow.grid_mincut_tiled_ref, 3, plain_reps, card,
                 "kernel2", tile_rows=tile_rows)
             errs2.append(err)
-        timing2 = (ms_k, ms_r, _mincut_bound(graph[0].shape, stats))
-        side_1 = maxflow.grid_mincut(*seam)
-        host = [t.cpu().numpy() for t in seam]
-        v1 = maxflow.cut_value(*host, side_1)
-        v2 = maxflow.cut_value(*host, maxflow.grid_mincut_tiled(*seam))
-        ms_1 = _time_ms(torch, maxflow.grid_mincut, seam, 3)
-        _line("kernel2", input="seam1400", solver="grid_mincut (kernel 1)",
-              cut_kernel1=v1, cut_kernel2=v2, kernel1_ms=ms_1,
-              kernel2_ms=timing2[0],
-              kernel1_stats=dict(maxflow.grid_mincut.last_stats),
-              device=card)
-        if abs(v1 - v2) > 1e-3 * max(1.0, abs(v1)):
-            raise RuntimeError(f"kernels 1 and 2 disagree: {v1} vs {v2}")
+        timing2 = (ms_k, ms_r, _mincut_bound(graph[3], stats))
+        # kernel 1 at seam1400 takes kernel 2's tiled route (its tiles do
+        # not fit), so this line is the crossover, not a second solver
+        _kernel_pair(torch, maxflow, "seam1400", seam, 3, card, "kernel2")
+
+        # ---- the crossover of kernels 1 and 2 between the two seam
+        # blocks, and the cost of one BFS level ----
+        for px in (850, 900, 950, 1000):
+            _kernel_pair(torch, maxflow, f"seam{px}",
+                         [t.contiguous() for t in
+                          _seam_graph(torch, tmp, px)], 3, card,
+                         "crossover", view_px=px)
+        maze = [torch.from_numpy(a).cuda() for a in maze_grid(128, 128, 0)]
+        for name in ("grid_mincut", "grid_mincut_tiled"):
+            def bfs(*a):
+                return maxflow.dist_to_sink(*a, kernel=name)
+            d = bfs(*maze)
+            ms = _time_ms(torch, bfs, maze)
+            levels = int(d[d < 1e18].max())
+            _line("crossover", input="maze128x128", bfs_of=name, bfs_ms=ms,
+                  max_distance=levels, us_per_level=ms * 1e3 / levels,
+                  device=card)
 
         # ---- kernel 3 vs its plain version on random streams: the
         # synthetic streams of tests/test_ba_kernel.py, and N=40 cameras

@@ -3,8 +3,9 @@
 ``fkh360_views`` cuts pinhole views with known yaw and focal out of the
 360-degree equirectangular fixture ``tests/data/ref_fresh/FKH360_300.jpg``
 (W px per 2*pi radians). Consecutive views overlap by hfov - yaw_step, so
-a loop of 360/yaw_step views closes the circle. ``cut_grid`` makes a
-random seam-style cut graph for the min-cut solvers.
+a loop of 360/yaw_step views closes the circle. ``cut_grid`` and
+``maze_grid`` make seam-style cut graphs for the min-cut solvers, and
+``max_flow_value`` their exact max-flow value.
 """
 
 from __future__ import annotations
@@ -84,3 +85,65 @@ def cut_grid(H: int, W: int, seed: int,
     exc[:, 0] = 5000.0
     exc[:, -1] = -5000.0
     return wh, wv, exc, node
+
+
+def maze_grid(H: int, W: int, seed: int, period: int = 4
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A serpentine maze as a cut graph (cap_h, cap_v, excess, node):
+    corridors of ``period - 1`` rows between wall rows (rows period - 1,
+    2 * period - 1, ... are not nodes) with a one-cell gap at the right end
+    of every even wall and the left end of every odd one, so the only path
+    runs the full width of every corridor in turn. Capacities uniform in
+    [0.1, 1); t-links of 5000 to the source at the first column of the
+    first corridor and to the sink at the far end of the last one. Sink
+    distances run to about H * W / period and cross every tile a row of
+    corridors passes."""
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    wv = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    node = np.ones((H, W), bool)
+    walls = list(range(period - 1, H, period))
+    for i, y in enumerate(walls):
+        node[y] = False
+        node[y, W - 1 if i % 2 == 0 else 0] = True
+    exc = np.zeros((H, W), np.float32)
+    exc[:min(period - 1, H), 0] = 5000.0
+    last = len([y for y in walls if y < H - 1])   # corridors before the last
+    y0 = last * period
+    exc[y0:H, W - 1 if last % 2 == 0 else 0] = -5000.0
+    exc[~node] = 0.0
+    return wh, wv, exc, node
+
+
+def max_flow_value(wh: np.ndarray, wv: np.ndarray, excess: np.ndarray,
+                   node: np.ndarray, scale: int = 10000) -> float:
+    """scipy's exact max-flow value of a cut graph (the arrays of
+    ``cut_grid``), on capacities rounded to 1/scale: the oracle the
+    min-cut solvers' tests hold their cut values to."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import maximum_flow
+    H, W = wh.shape
+    n = H * W
+    idx = np.arange(n).reshape(H, W)
+    rows, cols, caps = [], [], []
+
+    def add(u, v, c):
+        c = np.round(c * scale).astype(np.int64)
+        keep = c > 0
+        rows.append(u[keep])
+        cols.append(v[keep])
+        caps.append(c[keep])
+    h = node[:, :-1] & node[:, 1:]
+    add(idx[:, :-1][h], idx[:, 1:][h], wh[:, :-1][h])
+    add(idx[:, 1:][h], idx[:, :-1][h], wh[:, :-1][h])
+    v = node[:-1] & node[1:]
+    add(idx[:-1][v], idx[1:][v], wv[:-1][v])
+    add(idx[1:][v], idx[:-1][v], wv[:-1][v])
+    src = node & (excess > 0)
+    snk = node & (excess < 0)
+    add(np.full(src.sum(), n), idx[src], excess[src])
+    add(idx[snk], np.full(snk.sum(), n + 1), -excess[snk])
+    g = csr_matrix((np.concatenate(caps).astype(np.int32),
+                    (np.concatenate(rows), np.concatenate(cols))),
+                   shape=(n + 2, n + 2))
+    return maximum_flow(g, n, n + 1).flow_value / scale

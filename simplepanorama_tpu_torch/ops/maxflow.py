@@ -17,6 +17,12 @@ Two solvers, each with a plain PyTorch version and a CUDA kernel:
   ``_mincut_tiled_kernel``, and ``csrc/mincut_tiled.cu``, which replaces
   it with 2-D tiles in shared memory.
 
+Both kernels run one cooperative launch per outer round and share the
+bit-parallel tile BFS of ``csrc/mincut_bfs.cuh``; ``dist_to_sink`` runs
+that BFS alone. They may push in another order than their plain
+versions, which reaches the same cut (tests/test_torch_mincut_schedule.py
+holds CPU models of their schedules to it).
+
 ``grid_mincut`` and ``grid_mincut_tiled`` dispatch on where their tensors
 live: CPU tensors take the plain version; CUDA tensors launch the kernel
 (built with nvcc at first use) or raise. There is no fallback from one to
@@ -360,6 +366,10 @@ _KERNELS = {
 }
 _ENTRY = {}
 
+# the solvers' counters, in the order of the C entry points' stats
+_STATS = ("outer", "bfs_rounds", "launches", "host_reads", "push_tiles",
+          "resident", "push_ns", "bfs_ns", "bfs_levels")
+
 
 def build(kernel: str = "grid_mincut", rebuild: bool = False) -> float:
     """Build (or reuse, unless ``rebuild``) the kernel's CUDA source;
@@ -369,12 +379,14 @@ def build(kernel: str = "grid_mincut", rebuild: bool = False) -> float:
     lib, seconds = load_library(lib_name, [source], rebuild=rebuild)
     if kernel not in _ENTRY:
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
+        lib.spt_work_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.spt_work_floats.restype = ctypes.c_longlong
         lib.spt_error_string.argtypes = [ctypes.c_int]
         lib.spt_error_string.restype = ctypes.c_char_p
-        _ENTRY[kernel] = (fn, lib.spt_error_string)
+        _ENTRY[kernel] = (fn, lib.spt_work_floats, lib.spt_error_string)
     return seconds
 
 
@@ -397,26 +409,30 @@ def _check(cap_h, cap_v, excess0, node):
         raise ValueError(f"grid_mincut runs on cpu or cuda, not {cap_h.device}")
 
 
-def _launch(kernel, n_work, cap_h, cap_v, excess0, node, max_outer,
-            inner_iters, sweep_iters):
-    """Run one CUDA solver; returns (side, its three stats counters)."""
+def _launch(kernel, cap_h, cap_v, excess0, node, max_outer, inner_iters,
+            sweep_iters, dist=False):
+    """Run one CUDA solver; returns (side, the distances of its last BFS
+    when ``dist``, else None, its stats as a dict)."""
     build(kernel)
-    fn, err = _ENTRY[kernel]
+    fn, work_floats, err = _ENTRY[kernel]
     H, W = cap_h.shape
     dev = cap_h.device
     side = torch.empty((H, W), dtype=torch.bool, device=dev)
-    work = torch.empty((n_work, H, W), dtype=torch.float32, device=dev)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)
-    stats = (ctypes.c_longlong * 3)()
+    d = torch.empty((H, W), dtype=torch.float32, device=dev) if dist else None
+    work = torch.empty(int(work_floats(H, W)), dtype=torch.float32,
+                       device=dev)
+    flags = torch.zeros(12, dtype=torch.int32, device=dev)
+    stats = (ctypes.c_longlong * len(_STATS))()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(cap_h.data_ptr(), cap_v.data_ptr(), excess0.data_ptr(),
-                node.data_ptr(), side.data_ptr(), work.data_ptr(),
+                node.data_ptr(), side.data_ptr(),
+                d.data_ptr() if dist else None, work.data_ptr(),
                 flags.data_ptr(), H, W, max_outer, inner_iters, sweep_iters,
                 stream, stats)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel failed: " + err(rc).decode())
-    return side, tuple(stats)
+    return side, d, dict(zip(_STATS, stats))
 
 
 def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
@@ -432,7 +448,13 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
 
     Returns the (H, W) bool source side. CPU tensors run grid_mincut_ref;
     CUDA tensors launch csrc/mincut.cu and count the launch in
-    ``grid_mincut.launches``."""
+    ``grid_mincut.launches``; ``grid_mincut.last_stats`` holds the counters
+    of the last solve on the card (outer rounds, BFS rounds, launches,
+    host reads, push tiles worked by the tiled route, ``resident``: 1
+    when the grid's tiles stayed in shared memory, 0 when it took the
+    tiled route, the device nanoseconds of the push blocks and of the
+    BFSs, read from the device clock at grid barriers, and the BFS levels
+    run, summed over tiles and rounds)."""
     _check(cap_h, cap_v, excess0, node)
     H, W = cap_h.shape
     if sweep_iters <= 0:
@@ -440,11 +462,10 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
     if cap_h.device.type == "cpu":
         return grid_mincut_ref(cap_h, cap_v, excess0, node, max_outer,
                                inner_iters, sweep_iters)
-    side, stats = _launch("grid_mincut", 13, cap_h, cap_v, excess0, node,
-                          max_outer, inner_iters, sweep_iters)
+    side, _, stats = _launch("grid_mincut", cap_h, cap_v, excess0, node,
+                             max_outer, inner_iters, sweep_iters)
     grid_mincut.launches += 1
-    grid_mincut.last_stats = dict(zip(("outer", "bfs_passes", "kernels"),
-                                      stats))
+    grid_mincut.last_stats = stats
     return side
 
 
@@ -460,10 +481,10 @@ def grid_mincut_tiled(cap_h: torch.Tensor, cap_v: torch.Tensor,
     grid_mincut_auto calls it), same inputs and output as grid_mincut.
     CPU tensors run grid_mincut_tiled_ref (row tiles of 512, as the JAX
     package); CUDA tensors launch csrc/mincut_tiled.cu, whose 2-D tiles
-    (32x128 for the pushes, 64x128 for the BFS) are fixed by its source,
-    and count the launch in ``grid_mincut_tiled.launches``.
-    ``last_stats`` holds the outer rounds, BFS rounds and kernel launches
-    of the last solve on the card."""
+    (16x128 for the pushes, 128x128 for the BFS) and 5 push phases per
+    tile visit are fixed by its source, and count the launch in
+    ``grid_mincut_tiled.launches``. ``last_stats`` holds the counters of
+    the last solve on the card, as grid_mincut's."""
     _check(cap_h, cap_v, excess0, node)
     H, W = cap_h.shape
     if sweep_iters <= 0:
@@ -471,24 +492,42 @@ def grid_mincut_tiled(cap_h: torch.Tensor, cap_v: torch.Tensor,
     if cap_h.device.type == "cpu":
         return grid_mincut_tiled_ref(cap_h, cap_v, excess0, node, max_outer,
                                      inner_iters, sweep_iters)
-    side, stats = _launch("grid_mincut_tiled", 7, cap_h, cap_v, excess0,
-                          node, max_outer, inner_iters, sweep_iters)
+    side, _, stats = _launch("grid_mincut_tiled", cap_h, cap_v, excess0,
+                             node, max_outer, inner_iters, sweep_iters)
     grid_mincut_tiled.launches += 1
-    grid_mincut_tiled.last_stats = dict(zip(("outer", "bfs_rounds",
-                                             "kernels"), stats))
+    grid_mincut_tiled.last_stats = stats
     return side
 
 
 grid_mincut_tiled.launches = 0
 grid_mincut_tiled.last_stats = None
 
+
+def dist_to_sink(cap_h: torch.Tensor, cap_v: torch.Tensor,
+                 excess0: torch.Tensor, node: torch.Tensor,
+                 kernel: str = "grid_mincut_tiled") -> torch.Tensor:
+    """The first global-relabel BFS of a solve: (H, W) float32 distances
+    to the nearest sink (node with negative clipped excess) through
+    positive residual edges of the initial graph, 1e18 where there is
+    none; same inputs as grid_mincut. CPU tensors run _dist_to_sink_scan
+    to its fixpoint; CUDA tensors run the bit-parallel tile BFS of
+    ``kernel`` (csrc/mincut_bfs.cuh, driven by csrc/mincut.cu or
+    csrc/mincut_tiled.cu) to its fixpoint, which gives the same integers.
+    Not counted in the solvers' launches."""
+    _check(cap_h, cap_v, excess0, node)
+    H, W = cap_h.shape
+    if cap_h.device.type == "cpu":
+        caps, e = _init_state(cap_h, cap_v, excess0, node)
+        return _dist_to_sink_scan(caps, e < 0, node, H * W + 1)
+    return _launch(kernel, cap_h, cap_v, excess0, node, 0, 0, H * W + 1,
+                   dist=True)[1]
+
 # Largest grid the whole-grid solver takes: the JAX package's
-# _PALLAS_MAX_CELLS (maxflow.py:361). On the H100 it also marks where the
-# whole-grid kernel's 13 f32 state planes (52 B/cell, 62 MB at 1.2M
-# cells) no longer fit the 50 MB L2. Measured on an H100 80GB HBM3 at
-# 700 W on seam blocks: kernel 1's push streams at an L2 rate (3.8 TB/s)
-# up to 1.0M cells and at an HBM rate (2.6 TB/s) from 1.9M, and the tiled
-# kernel overtakes it between 1.0M and 1.5M cells.
+# _PALLAS_MAX_CELLS (maxflow.py:361). Measured on an H100 80GB HBM3 at
+# 700 W on seam blocks (PERF.md): kernel 1 keeps its tiles resident in
+# shared memory up to ~0.8-0.9M cells and beats kernel 2 there by
+# 1.19-1.34x; above that it takes kernel 2's tiled route and times the
+# same, so where between 0.8M and 1.2M the switch sits changes nothing.
 WHOLE_GRID_MAX_CELLS = 1_200_000
 
 

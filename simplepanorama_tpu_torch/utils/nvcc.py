@@ -57,7 +57,8 @@ def load_library(name: str, sources: Sequence[str],
             return _LIBS[name]
         paths = [CSRC / s for s in sources]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        # the sources and every header they may include
+        for p in paths + sorted(CSRC.glob("*.cuh")):
             h.update(p.read_bytes())
         so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
         seconds = 0.0

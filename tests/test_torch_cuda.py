@@ -14,7 +14,8 @@ import torch
 
 from simplepanorama_tpu_torch import Config, Panorama
 from simplepanorama_tpu_torch.adjacency import torch_pair_draws
-from simplepanorama_tpu_torch.fixtures import cut_grid, fkh360_views
+from simplepanorama_tpu_torch.fixtures import (cut_grid, fkh360_views,
+                                               max_flow_value, maze_grid)
 from simplepanorama_tpu_torch.stitch import StitchResult
 from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
 from simplepanorama_tpu_torch.render import graphcut
@@ -43,6 +44,9 @@ def test_kernel_matches_plain_version(cuda, H, W, seed):
     before = maxflow.grid_mincut.launches
     side_k = maxflow.grid_mincut(*t)
     assert maxflow.grid_mincut.launches == before + 1
+    stats = maxflow.grid_mincut.last_stats
+    assert stats["resident"] == 1
+    assert stats["host_reads"] == stats["outer"] + 1   # one per BFS
     side_r = maxflow.grid_mincut_ref(*t)
     torch.cuda.synchronize()
     v_k = maxflow.cut_value(*host, side_k)
@@ -97,6 +101,8 @@ def test_tiled_kernel_matches_plain_version(cuda, H, W, seed):
     before = maxflow.grid_mincut_tiled.launches
     side_k = maxflow.grid_mincut_tiled(*t)
     assert maxflow.grid_mincut_tiled.launches == before + 1
+    stats = maxflow.grid_mincut_tiled.last_stats
+    assert stats["host_reads"] == stats["outer"] + 1   # one per BFS
     side_r = maxflow.grid_mincut_tiled_ref(*t, tile_rows=16)
     torch.cuda.synchronize()
     v_k = maxflow.cut_value(*host, side_k)
@@ -104,6 +110,99 @@ def test_tiled_kernel_matches_plain_version(cuda, H, W, seed):
     assert abs(v_k - v_r) <= 1e-3 * max(1.0, v_r)
     assert (side_k.cpu().numpy() == side_r.cpu().numpy())[host[3]].mean() \
         >= 0.999
+
+
+_BFS_GRIDS = {
+    "random24x32": lambda: cut_grid(24, 32, 0, (4, 10, 8, 14)),
+    "random48x160": lambda: cut_grid(48, 160, 7, (10, 20, 40, 70)),
+    "random200x328": lambda: cut_grid(200, 328, 3, (40, 90, 82, 148)),
+    "maze96x200": lambda: maze_grid(96, 200, 1),
+    "maze512x1024": lambda: maze_grid(512, 1024, 2),
+    # more 128x128 BFS tiles than CTAs: kernel 2 reloads a tile's
+    # distances at every visit
+    "random1600x1600": lambda: cut_grid(1600, 1600, 5, (400, 700, 300, 900)),
+}
+
+
+@pytest.mark.parametrize("kernel", ["grid_mincut", "grid_mincut_tiled"])
+@pytest.mark.parametrize("grid", sorted(_BFS_GRIDS))
+def test_bfs_distances_exact(cuda, kernel, grid):
+    """The kernels' bit-parallel tile BFS (maxflow.dist_to_sink on the
+    card) gives exactly _dist_to_sink_scan's distances on every cell,
+    INF included. The maze's sink distances run to ~130k and cross every
+    BFS tile of its rows; at 1600x1600 (both kernels take the tiled
+    route) there are more BFS tiles than resident CTAs."""
+    host = _BFS_GRIDS[grid]()
+    t = [torch.from_numpy(a).to(cuda) for a in host]
+    got = maxflow.dist_to_sink(*t, kernel=kernel)
+    caps, e = maxflow._init_state(*t)
+    want = maxflow._dist_to_sink_scan(caps, e < 0, t[3], host[0].size + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+# ragged shapes: one row, one column, narrower and shorter than one tile
+# of either kernel, exact multiples of kernel 2's push (32x128) and BFS
+# (128x128) tiles, and a maze whose one path crosses every tile
+_SOLVE_GRIDS = {
+    "row1x300": lambda: cut_grid(1, 300, 5, (0, 0, 0, 0)),
+    "col300x1": lambda: _column(300, 5),
+    "small20x100": lambda: cut_grid(20, 100, 6, (5, 9, 30, 40)),
+    "tiles128x256": lambda: cut_grid(128, 256, 8, (30, 60, 100, 150)),
+    "tiles64x384": lambda: cut_grid(64, 384, 9, (10, 30, 130, 250)),
+    "maze64x160": lambda: maze_grid(64, 160, 3),
+}
+
+
+def _column(H, seed):
+    """A one-column grid with the source on top and the sink below."""
+    wh, wv, exc, node = cut_grid(H, 1, seed, (0, 0, 0, 0))
+    exc[:] = 0.0
+    exc[0, 0] = 5000.0
+    exc[-1, 0] = -5000.0
+    return wh, wv, exc, node
+
+
+@pytest.mark.parametrize("kernel", ["grid_mincut", "grid_mincut_tiled"])
+@pytest.mark.parametrize("grid", sorted(_SOLVE_GRIDS))
+def test_kernels_on_ragged_shapes_and_maze(cuda, kernel, grid):
+    """Each kernel against its plain version and scipy's exact max-flow
+    value: cut values within 1e-3 relative (float64 recount; scipy on
+    capacities rounded to 1e-4), sides equal on >= 99.9% of nodes, and
+    the solve ended by its termination test, before max_outer."""
+    host = _SOLVE_GRIDS[grid]()
+    t = [torch.from_numpy(a).to(cuda) for a in host]
+    fn = getattr(maxflow, kernel)
+    plain = (maxflow.grid_mincut_ref if kernel == "grid_mincut" else
+             lambda *a: maxflow.grid_mincut_tiled_ref(*a, tile_rows=16))
+    side_k = fn(*t, max_outer=400)
+    stats = dict(fn.last_stats)
+    side_r = plain(*t)
+    torch.cuda.synchronize()
+    v_k = maxflow.cut_value(*host, side_k)
+    v_r = maxflow.cut_value(*host, side_r)
+    exact = max_flow_value(*host)
+    assert stats["outer"] < 400, stats
+    assert abs(v_k - v_r) <= 1e-3 * max(1.0, abs(v_r)), (v_k, v_r)
+    assert abs(v_k - exact) <= 1e-3 * max(1.0, exact), (v_k, exact)
+    assert (side_k.cpu().numpy() == side_r.cpu().numpy())[host[3]].mean() \
+        >= 0.999
+
+
+def test_kernel1_takes_tiled_route_when_tiles_do_not_fit(cuda):
+    """A 1000x1100 grid (1.1M cells, under WHOLE_GRID_MAX_CELLS) is too
+    large for kernel 1's tiles to stay resident in shared memory: it takes
+    kernel 2's tiled route and gives kernel 2's cut value."""
+    host = cut_grid(1000, 1100, 4, (300, 500, 400, 700))
+    t = [torch.from_numpy(a).to(cuda) for a in host]
+    side_1 = maxflow.grid_mincut(*t)
+    stats = dict(maxflow.grid_mincut.last_stats)
+    side_2 = maxflow.grid_mincut_tiled(*t)
+    torch.cuda.synchronize()
+    assert stats["resident"] == 0 and stats["outer"] < 400, stats
+    v1 = maxflow.cut_value(*host, side_1)
+    v2 = maxflow.cut_value(*host, side_2)
+    assert abs(v1 - v2) <= 1e-3 * max(1.0, abs(v2)), (v1, v2)
 
 
 def _ncc(a, b):

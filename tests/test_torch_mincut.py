@@ -13,42 +13,10 @@ import jax.numpy as jnp
 
 from simplepanorama_tpu.ops.maxflow import grid_mincut as jax_grid_mincut
 from simplepanorama_tpu.ops.maxflow import grid_mincut_pallas
-from simplepanorama_tpu_torch.fixtures import cut_grid
+from simplepanorama_tpu_torch.fixtures import cut_grid, max_flow_value
 from simplepanorama_tpu_torch.ops import maxflow as tmf
 
 torch.set_num_threads(2)
-
-
-def _scipy_value(wh, wv, excess, node, scale=10000):
-    from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import maximum_flow
-    H, W = wh.shape
-    n = H * W
-    rows, cols, caps = [], [], []
-
-    def add(u, v, c):
-        c = int(round(c * scale))
-        if c > 0:
-            rows.append(u)
-            cols.append(v)
-            caps.append(c)
-    for y in range(H):
-        for x in range(W):
-            u = y * W + x
-            if not node[y, x]:
-                continue
-            if x + 1 < W and node[y, x + 1]:
-                add(u, u + 1, wh[y, x])
-                add(u + 1, u, wh[y, x])
-            if y + 1 < H and node[y + 1, x]:
-                add(u, u + W, wv[y, x])
-                add(u + W, u, wv[y, x])
-            if excess[y, x] > 0:
-                add(n, u, excess[y, x])
-            elif excess[y, x] < 0:
-                add(u, n + 1, -excess[y, x])
-    g = csr_matrix((caps, (rows, cols)), shape=(n + 2, n + 2))
-    return maximum_flow(g, n, n + 1).flow_value / scale
 
 
 def _grid(H, W, seed):
@@ -69,7 +37,7 @@ def test_ref_matches_jax_and_scipy(H, W, seed):
                                    for a in (wh, wv, exc, node))).numpy()
     side_j = np.asarray(jax_grid_mincut(*(jnp.asarray(a)
                                           for a in (wh, wv, exc, node))))
-    exact = _scipy_value(wh, wv, exc, node)
+    exact = max_flow_value(wh, wv, exc, node)
     v_t = tmf.cut_value(wh, wv, exc, node, side_t)
     assert abs(v_t - exact) <= 1e-3 * max(1.0, exact), (v_t, exact)
     assert (side_t == side_j)[node].mean() >= 0.999

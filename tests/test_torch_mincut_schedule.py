@@ -1,0 +1,289 @@
+"""Plain-PyTorch models of the schedules the two min-cut kernels run on
+the card (csrc/mincut_bfs.cuh, csrc/mincut_tile.cuh, csrc/mincut.cu,
+csrc/mincut_tiled.cu), held on the CPU against the plain solvers, the
+scan BFS and scipy's exact max flow. The kernels may push in another
+order than the plain versions; these tests show that the orders they use
+reach the same cut and the same distances.
+
+* The tile BFS: level-synchronous inside a tile and incremental from
+  round to round (the sinks enter at level 0 in the first round, then
+  every halo cell whose distance dropped enters at its new distance),
+  rounds over all tiles until no edge distance drops. Held against
+  _dist_to_sink_scan: equal on every cell.
+* Kernel 2: four colours of tiles, each tile running k push/relabel
+  phases in a row with its halo cells only receiving; cells at height INF
+  do not push. Held against grid_mincut_ref and scipy.
+* Kernel 1: lock-step phases over the whole grid, a flow that leaves its
+  tile applied only after the phase's four sub-steps, before the relabel.
+  Held against grid_mincut_ref and scipy.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simplepanorama_tpu.ops import maxflow as jmf
+from simplepanorama_tpu_torch.fixtures import (cut_grid, max_flow_value,
+                                               maze_grid)
+from simplepanorama_tpu_torch.ops import maxflow as tmf
+
+torch.set_num_threads(2)
+
+_INF = tmf._INF
+_BIG = 1 << 40   # int "no path" of the BFS model
+
+
+def _grids():
+    return {
+        "random24x32": cut_grid(24, 32, 0, (5, 9, 10, 14)),
+        "random48x160": cut_grid(48, 160, 7, (10, 20, 40, 70)),
+        "maze24x64": maze_grid(24, 64, 0),
+        "maze40x96": maze_grid(40, 96, 1),
+    }
+
+
+def _state(host):
+    t = [torch.from_numpy(a) for a in host]
+    caps, e = tmf._init_state(*t)
+    return t, caps, e
+
+
+def _tile_bfs(opn, sink, d, halo, halo_old, first):
+    """One incremental round of the level BFS of one tile, in place on its
+    distances ``d`` (int64 (h, w), exact for ``halo_old``). opn: 4 bool
+    (h, w) planes (may step right, left, down, up); halo, halo_old: int64
+    (h + 2, w + 2) with the halo distances on the border (corners and
+    inside unused). Seeds: the sinks at level 0 in the first round, and
+    the halo cells whose distance dropped, each at its new distance. A
+    level lowers the cells next to the frontier whose distance is above
+    the level + 1. Returns whether a distance on the tile's edge dropped."""
+    h, w = sink.shape
+    border = torch.where(halo < halo_old, halo, torch.full_like(halo, _BIG))
+    border[1:-1, 1:-1] = _BIG
+    front = torch.zeros((h + 2, w + 2), dtype=torch.bool)
+    if first:
+        front[1:-1, 1:-1] = sink
+    edge = torch.ones((h, w), dtype=torch.bool)
+    edge[1:-1, 1:-1] = False
+    dropped = False
+    L = 0 if bool(front.any()) else int(border.min())
+    while L < _BIG:
+        f = front | (border == L)     # halo cells join at their own level
+        cand = ((opn[0] & f[1:-1, 2:]) | (opn[1] & f[1:-1, :-2])
+                | (opn[2] & f[2:, 1:-1]) | (opn[3] & f[:-2, 1:-1]))
+        new = cand & (d > L + 1)
+        d[new] = L + 1
+        dropped |= bool((new & edge).any())
+        front = torch.zeros_like(front)
+        front[1:-1, 1:-1] = new
+        if bool(new.any()):
+            L += 1
+        else:   # the frontier is empty: the next halo level, if any
+            later = border[border > L]
+            L = int(later.min()) if later.numel() else _BIG
+    return dropped
+
+
+def _bfs_model(caps, e, node, BH, BW):
+    """Rounds of incremental tile BFSs over BH x BW tiles until no edge
+    distance drops. Returns (float distances with _INF, rounds)."""
+    H, W = e.shape
+    opn = [c > 0 for c in caps]
+    sink = node & (e < 0)
+    d = torch.where(sink, 0, _BIG).to(torch.int64)
+    pad = torch.full((H + 2, W + 2), _BIG, dtype=torch.int64)
+    seen = {}
+    rounds = 0
+    while True:
+        dropped = False
+        for y0 in range(0, H, BH):
+            for x0 in range(0, W, BW):
+                y1, x1 = min(y0 + BH, H), min(x0 + BW, W)
+                pad[1:-1, 1:-1] = d
+                halo = pad[y0:y1 + 2, x0:x1 + 2].clone()
+                old = seen.get((y0, x0), torch.full_like(halo, _BIG))
+                sl = (slice(y0, y1), slice(x0, x1))
+                dt = d[sl].clone()
+                dropped |= _tile_bfs([o[sl] for o in opn], sink[sl], dt,
+                                     halo, old, rounds == 0)
+                d[sl] = dt
+                seen[(y0, x0)] = halo
+        rounds += 1
+        if not dropped:
+            break
+    return torch.where(d < _BIG, d.to(torch.float32),
+                       torch.full_like(e, _INF)), rounds
+
+
+@pytest.mark.parametrize("grid", ["random24x32", "random48x160",
+                                  "maze24x64", "maze40x96"])
+@pytest.mark.parametrize("BH,BW", [(8, 32), (5, 17)])
+def test_tile_bfs_model_matches_scan(grid, BH, BW):
+    """The incremental tile BFS (halo cells entering at their own level,
+    rounds until no edge distance drops) gives exactly _dist_to_sink_scan's
+    distances on every cell, INF included, for tiles that divide the grid
+    and tiles that do not."""
+    t, caps, e = _state(_grids()[grid])
+    got, rounds = _bfs_model(caps, e, t[3], BH, BW)
+    want = tmf._dist_to_sink_scan(caps, e < 0, t[3], e.numel() + 1)
+    assert torch.equal(got, want)
+    assert rounds >= 1
+
+
+@pytest.mark.parametrize("grid", ["random48x160", "maze40x96"])
+def test_dist_to_sink_cpu_matches_jax_scan(grid):
+    """maxflow.dist_to_sink on CPU tensors (the plain path of the kernels'
+    BFS entry point) equals the JAX package's _dist_to_sink_scan on the
+    same initial graph (its _mincut_core state), exactly, and the tile BFS
+    model."""
+    host = _grids()[grid]
+    t = [torch.from_numpy(a) for a in host]
+    got = tmf.dist_to_sink(*t)
+    wh, wv, exc, node = (jnp.asarray(a) for a in host)
+    nodef = node.astype(jnp.float32)
+    ch = wh * nodef * jmf._shift(nodef, 0, 1, 0.0)
+    cv = wv * nodef * jmf._shift(nodef, 1, 0, 0.0)
+    caps = jnp.stack([ch, jmf._shift(ch, 0, -1, 0.0),
+                      cv, jmf._shift(cv, -1, 0, 0.0)])
+    e = jnp.clip(jnp.where(node, exc, 0.0), -(caps.sum(0) + 1.0),
+                 caps.sum(0) + 1.0)
+    want = np.asarray(jmf._dist_to_sink_scan(caps, e < 0, node,
+                                             host[0].size + 1))
+    assert np.array_equal(got.numpy(), want)
+    _, caps_t, e_t = _state(host)
+    model, _ = _bfs_model(caps_t, e_t, t[3], 8, 32)
+    assert torch.equal(got, model)
+
+
+def _cut_checks(host, side, name):
+    t = [torch.from_numpy(a) for a in host]
+    ref = tmf.grid_mincut_ref(*t)
+    v = tmf.cut_value(*host, side)
+    v_ref = tmf.cut_value(*host, ref)
+    exact = max_flow_value(*host)
+    assert abs(v - v_ref) <= 1e-3 * max(1.0, abs(v_ref)), (name, v, v_ref)
+    assert abs(v - exact) <= 1e-3 * max(1.0, exact), (name, v, exact)
+    node = host[3]
+    assert (side.numpy() == ref.numpy())[node].mean() >= 0.999
+
+
+def _bfs(caps, e, node):
+    return tmf._dist_to_sink_scan(caps, e < 0, node, e.numel() + 1)
+
+
+def _tiled_model(host, TH, TW, k, inner=30, max_outer=400):
+    """Kernel 2's schedule: per outer round, ceil(inner / k) visits of
+    every active tile, the tiles of one colour (tile row, column mod 2)
+    at a time; a visit runs k push/relabel phases on the tile with its
+    edge halo, where only interior cells below INF push or lift. Returns
+    (side, outer rounds)."""
+    t, caps, e = _state(host)
+    node = t[3]
+    H, W = e.shape
+    h = _bfs(caps, e, node)
+    it = 0
+    while it < max_outer and bool(((e > 0) & (h < _INF)).any()):
+        for _ in range(-(-inner // k)):
+            for cy in (0, 1):
+                for cx in (0, 1):
+                    for y0 in range(cy * TH, H, 2 * TH):
+                        for x0 in range(cx * TW, W, 2 * TW):
+                            y1, x1 = min(y0 + TH, H), min(x0 + TW, W)
+                            if not bool(((e[y0:y1, x0:x1] > 0)
+                                         & (h[y0:y1, x0:x1] < _INF)).any()):
+                                continue   # an idle tile
+                            s0, s1 = max(y0 - 1, 0), min(y1 + 1, H)
+                            r0, r1 = max(x0 - 1, 0), min(x1 + 1, W)
+                            sl = (slice(s0, s1), slice(r0, r1))
+                            inner_m = torch.zeros((s1 - s0, r1 - r0),
+                                                  dtype=torch.bool)
+                            inner_m[y0 - s0:y1 - s0, x0 - r0:x1 - r0] = True
+                            cs = [c[sl].clone() for c in caps]
+                            es, hs = e[sl].clone(), h[sl].clone()
+                            for _ in range(k):
+                                es, hs = tmf._push_phase(cs, es, hs,
+                                                         inner_m & (hs < _INF))
+                            for c, cn in zip(caps, cs):
+                                c[sl] = cn
+                            e[sl] = es
+                            h[sl] = hs
+        h = _bfs(caps, e, node)
+        it += 1
+    return (h >= _INF) & node, it
+
+
+@pytest.mark.parametrize("grid", ["random24x32", "random48x160",
+                                  "maze24x64"])
+@pytest.mark.parametrize("k", [1, 5])
+def test_tiled_schedule_model_reaches_the_min_cut(grid, k):
+    """Kernel 2's schedule (four colours, k phases per tile visit, idle
+    tiles skipped, no pushes at INF) reaches the plain solver's cut and
+    scipy's exact value (within 1e-3 relative), sides equal on >= 99.9%
+    of nodes, ended by its termination test."""
+    host = _grids()[grid]
+    side, outer = _tiled_model(host, 8, 32, k)
+    assert outer < 400
+    _cut_checks(host, side, grid)
+
+
+def _resident_model(host, TH, TW, inner=30, max_outer=400):
+    """Kernel 1's schedule: lock-step phases over the whole grid; a flow
+    whose target lies in another TH x TW tile leaves its sender at once
+    and reaches its target after the phase's four sub-steps, before the
+    lock-step relabel; cells at INF do not push. Returns (side, outer
+    rounds)."""
+    t, caps, e = _state(host)
+    node = t[3]
+    H, W = e.shape
+    tile = (torch.arange(H)[:, None] // TH) * W + \
+        torch.arange(W)[None, :] // TW
+    zero = torch.zeros_like(e)
+    h = _bfs(caps, e, node)
+    it = 0
+    while it < max_outer and bool(((e > 0) & (h < _INF)).any()):
+        for _ in range(inner):
+            h_nb = [tmf._shift(h, dy, dx, _INF) for dy, dx in tmf._DIRS]
+            lower = [h == nb + 1.0 for nb in h_nb]
+            late_e = zero.clone()
+            late_c = [zero.clone() for _ in range(4)]
+            for k, (dy, dx) in enumerate(tmf._DIRS):
+                adm = (e > 0) & lower[k] & (caps[k] > 0) & (h < _INF)
+                flow = torch.where(adm, torch.minimum(e, caps[k]), zero)
+                caps[k] = caps[k] - flow
+                back = tmf._shift(flow, -dy, -dx, 0.0)
+                src_tile = tmf._shift(tile, -dy, -dx, -1)
+                same = src_tile == tile
+                now = torch.where(same, back, zero)
+                late = torch.where(same, zero, back)
+                caps[tmf._REV[k]] = caps[tmf._REV[k]] + now
+                e = e - flow + now
+                late_e = late_e + late
+                late_c[tmf._REV[k]] = late_c[tmf._REV[k]] + late
+            e = e + late_e
+            for k in range(4):
+                caps[k] = caps[k] + late_c[k]
+            min_h = torch.full_like(e, _INF)
+            adm = torch.zeros(e.shape, dtype=torch.bool)
+            for k in range(4):
+                has = caps[k] > 0
+                min_h = torch.minimum(min_h, torch.where(has, h_nb[k], _INF))
+                adm |= has & lower[k]
+            lift = (e > 0) & ~adm & (min_h < _INF)
+            h = torch.where(lift, min_h + 1.0, h)
+        h = _bfs(caps, e, node)
+        it += 1
+    return (h >= _INF) & node, it
+
+
+@pytest.mark.parametrize("grid", ["random24x32", "random48x160",
+                                  "maze24x64"])
+def test_resident_schedule_model_reaches_the_min_cut(grid):
+    """Kernel 1's schedule (whole-grid lock-step phases, cross-tile flow
+    applied after the four sub-steps) reaches the plain solver's cut and
+    scipy's exact value (within 1e-3 relative), sides equal on >= 99.9%
+    of nodes, ended by its termination test."""
+    host = _grids()[grid]
+    side, outer = _resident_model(host, 12, 32)
+    assert outer < 400
+    _cut_checks(host, side, grid)

@@ -14,9 +14,8 @@ import torch
 import jax.numpy as jnp
 
 from simplepanorama_tpu.ops.maxflow import grid_mincut_pallas_tiled
-from simplepanorama_tpu_torch.fixtures import cut_grid
+from simplepanorama_tpu_torch.fixtures import cut_grid, max_flow_value
 from simplepanorama_tpu_torch.ops import maxflow as tmf
-from test_torch_mincut import _scipy_value
 
 torch.set_num_threads(2)
 
@@ -43,7 +42,7 @@ def test_tiled_ref_matches_pallas_interpret_and_scipy():
         interpret=True))
     v_t = tmf.cut_value(wh, wv, exc, node, side_t)
     v_p = tmf.cut_value(wh, wv, exc, node, side_p)
-    exact = _scipy_value(wh, wv, exc, node)
+    exact = max_flow_value(wh, wv, exc, node)
     assert abs(v_t - v_p) <= 1e-3 * max(1.0, v_p), (v_t, v_p)
     assert abs(v_t - exact) <= 1e-3 * max(1.0, exact), (v_t, exact)
     assert (side_t == side_p)[node].mean() >= 0.999
