@@ -48,9 +48,24 @@ Phases, each printing one line per input:
           against the port's own assembly (ba._assemble_cache +
           _schur_solve_system), which is also timed, as computed and in
           the Jacobi scaling of the solve;
+  slice5  the little planet: the slice-3 loop through
+          Panorama(paths, device="cuda").stitch(Config(proj=
+          STEREOGRAPHIC)) (fix_center on, as by default), get_preview()
+          and get_panorama(); a PanoramaViewer on it (zoom, crop, undo,
+          redo, save of the full-res crop); the same result without the
+          fix (the centre must stay dark), then re-composited with
+          cut=True, no second BA, with the min-cut launches counted,
+          and kernel 1 against grid_mincut_ref on the first seam graph
+          of that re-composite (the sten-fixed blocks, over kernel 1's
+          residency limit: its tiled route);
+  stream  load + keypoints of the loops of slices 1, 2 and 3 through
+          the list path (every image decoded, then SIFT) and through the
+          streaming decode, in turns, with SIFT's peak device memory;
   cpu_vs_card  4 views of 640 px (preview 320 px) through the port on
           "cpu" and "cuda", with graph-cut seams and with the Lowe
-          objective: previews and full-res panoramas.
+          objective: previews and full-res panoramas; and the little
+          planet of a 12-view 300-px loop with its true geometry
+          (set_config + render_preview, no BA).
 
 Then one JSON line with the kernels' numbers and, last, the result line.
 Any failure raises: the exit code is then non-zero and no result line
@@ -114,7 +129,7 @@ def _seam_graph(torch, tmp, size):
     hands the solver)."""
     import cv2
     from simplepanorama_tpu_torch.fixtures import fkh360_views
-    from simplepanorama_tpu_torch.render import compose, graphcut
+    from simplepanorama_tpu_torch.render import compose
     paths, yaws, f = fkh360_views(2, size,
                                   out_dir=os.path.join(tmp, f"pair{size}"))
     imgs = [cv2.imread(p) for p in paths]
@@ -127,18 +142,28 @@ def _seam_graph(torch, tmp, size):
                             [-np.sin(a), 0, np.cos(a)]]))
     st = compose.warp_all("spherical", f, imgs, Rs, Ks, [1.0, 1.0],
                           device="cuda")
+    return _first_cut_graph(torch, st, (0, 1))
+
+
+def _first_cut_graph(torch, st, seq):
+    """The seam graph of the first cut that render/graphcut.graph_cut_state
+    makes on the ComposeState ``st`` in the order ``seq``: block seq[1]
+    against block seq[0] pasted on the canvas, as contiguous tensors."""
+    from simplepanorama_tpu_torch.render import graphcut
     gray = graphcut._gray_batch(st.imgs)
     N, Hb, Wb = st.masks.shape
     H, W = st.canvas_hw
-    canvas = torch.zeros((H + Hb, W + Wb), device="cuda")
-    scene = torch.zeros((H + Hb, W + Wb), dtype=torch.bool, device="cuda")
+    dev = st.imgs.device
+    canvas = torch.zeros((H + Hb, W + Wb), device=dev)
+    scene = torch.zeros((H + Hb, W + Wb), dtype=torch.bool, device=dev)
     offs = st.offs.tolist()
-    graphcut._paste_first(canvas, scene, gray[0], st.masks[0], offs[0])
-    y, x = offs[1]
-    return graphcut._build_cut_graph(
-        canvas[y:y + Hb, x:x + Wb], gray[1],
+    a, b = seq[0], seq[1]
+    graphcut._paste_first(canvas, scene, gray[a], st.masks[a], offs[a])
+    y, x = offs[b]
+    return [t.contiguous() for t in graphcut._build_cut_graph(
+        canvas[y:y + Hb, x:x + Wb], gray[b],
         scene[y:y + Hb, x:x + Wb].float() * 255.0,
-        st.masks[1].float() * 255.0)
+        st.masks[b].float() * 255.0)]
 
 
 def _coverage(img):
@@ -261,12 +286,75 @@ def _ncc_common(a, b):
     return _ncc(a[both], b[both])
 
 
+def _center_dark(img, frac=6):
+    """Share of near-black pixels in the central third of a panorama
+    (tests/test_e2e_golden.py's measure of the little planet's hole)."""
+    h, w = img.shape[:2]
+    c = img[h // 2 - h // frac:h // 2 + h // frac,
+            w // 2 - w // frac:w // 2 + w // frac]
+    return float((c.sum(-1) <= 3).mean())
+
+
+def _loop_result(yaws, f, size):
+    """The true geometry of a pure-yaw loop of ``size``-px views as the BA
+    would hand it over: R = rot_y(yaw), K with focal ``f``."""
+    from simplepanorama_tpu_torch.stitch import StitchResult
+    n = len(yaws)
+    Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]]) for a in np.radians(yaws)]
+    K = np.array([[f, 0, size // 2], [0, f, size // 2], [0, 0, 1.0]])
+    adj = np.zeros((n, n))
+    for i in range(n):
+        adj[min(i, (i + 1) % n), max(i, (i + 1) % n)] = 0.5
+    return StitchResult(
+        rot=np.stack(Rs), K=np.stack([K] * n), adj=adj,
+        connectivity=np.ones(n), order=[(0, -1)] + [(i, i - 1)
+                                                    for i in range(1, n)],
+        nodes=list(range(n)), center=0, sizes=[(size, size)] * n)
+
+
+def _load_and_keypoints(torch, paths, cfg, stream):
+    """The load and keypoints stages of run_pipeline on the card: every
+    image decoded before SIFT (``stream`` False, the list path) or the
+    streaming decode. Returns (wall s, SIFT's peak device memory,
+    keypoints found)."""
+    from simplepanorama_tpu_torch.features import extract_features
+    from simplepanorama_tpu_torch.io import ImageSet
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    images = ImageSet(paths)
+    if stream:
+        feats = extract_features(
+            images.load_resized_stream(cfg.init_size, cfg.threads), cfg,
+            device="cuda")
+    else:
+        images.load_resized(cfg.init_size, cfg.threads)
+        feats = extract_features(images.img_data, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (wall, torch.cuda.max_memory_allocated() - base,
+            sum(f.count for f in feats))
+
+
 # Largest relative focal error of the slice-3 stitch (Lowe objective) on
 # its 12-view loop: at least five times the JAX package's own error on
 # the same loop on the CPU, which
 # tests/test_torch_cli.py::test_jax_lowe_focals_set_the_slice3_gate
 # measures and holds to this gate
 SLICE3_FOCAL_GATE = 0.01
+
+# Least NCC of slice 5's fixed little planet, full-res against preview
+# (common footprint). The full-res render estimates the circle again on
+# the full-res masks, as the reference's return_full does; their 4-px
+# erosion is half as wide in preview pixels, so the hole, and with it the
+# radial stretch, comes out slightly different, and the two planets are
+# not one picture at two sizes (without the fix they are: NCC >= 0.95).
+# The JAX package's own value on the same loop with its true geometry,
+# which tests/test_torch_sten.py::test_jax_little_planet_sets_the_slice5_gate
+# measures on the CPU, stays at least 0.02 above this gate.
+SLICE5_FIXED_NCC_GATE = 0.90
 
 # H100 SXM peaks at the full 700 W power limit (NVIDIA's data sheet):
 # device memory bytes/s, and float32 operations/s outside the tensor cores
@@ -516,6 +604,223 @@ def _system_from_sums(ba, sums, aug, lam, active, fast):
     return ba._mask_inactive(S, rhs, active)
 
 
+def _slice5(torch, paths, f_true, tmp, card):
+    """Slice 5 on the card: the little planet of ``paths`` (the slice-3
+    loop; full-res twice the 700-px preview), the viewer on it, the same
+    result without the fix and re-composited with graph-cut seams (no
+    second BA). Prints the slice5 line, checks its gates, and returns
+    the min-cut launches (kernel 1, kernel 2) of the re-composite and
+    kernel 1's |cut difference| from its plain version on the
+    re-composite's first seam graph."""
+    import cv2
+    from simplepanorama_tpu_torch import (Config, Panorama, PanoramaViewer,
+                                          Projection, ba)
+    from simplepanorama_tpu_torch.ops import maxflow
+    from simplepanorama_tpu_torch.utils.timing import global_timer
+    timer = global_timer()
+    os.environ["SPT_SYNC_STAGES"] = "1"
+    sten = Config(proj=Projection.STEREOGRAPHIC)
+    timer.durations.clear()
+    timer.counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(maxflow)
+    t0 = time.perf_counter()
+    with _count_lm(ba) as lm5:
+        pano = Panorama(paths, device="cuda").stitch(sten)
+    preview = pano.get_preview()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches5_stitch = _launches(maxflow)
+    stages5 = dict(timer.durations)
+    t0 = time.perf_counter()
+    full = pano.get_panorama()
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    peak5 = torch.cuda.max_memory_allocated()
+    focals = pano.result.K[:, 0, 0]
+    circle = pano.stitch_params.sten_circle
+    blocks = list(pano.stitch_params.state.masks.shape)
+    small = cv2.resize(full, (preview.shape[1], preview.shape[0]),
+                       interpolation=cv2.INTER_AREA)
+    ncc_full = _ncc_common(preview, small)
+    dark = (_center_dark(preview), _center_dark(full))
+
+    viewer = PanoramaViewer(pano)
+    zoomed = viewer.zoom_in()
+    dh, dw = viewer.display().shape[:2]
+    cropped = viewer.crop((dw // 4, dh // 4, dw // 2, dh // 2))
+    crop_rect = viewer.crop_preview
+    undone, redone = viewer.undo_crop(), viewer.redo_crop()
+    saved_p = os.path.join(tmp, "slice5_crop.png")
+    t0 = time.perf_counter()
+    saved_ok = viewer.save(saved_p, full_res=True)
+    save_wall = time.perf_counter() - t0
+    saved = cv2.imread(saved_p)
+    want_shape = pano.get_panorama(viewer.crop_preview).shape
+
+    pano.set_config(Config(proj=Projection.STEREOGRAPHIC,
+                           fix_center=False))
+    preview_nofix = pano.get_preview()
+    dark_nofix = _center_dark(preview_nofix)
+    circle_nofix = pano.stitch_params.sten_circle
+    full_nofix = cv2.resize(pano.get_panorama(), (preview_nofix.shape[1],
+                                                   preview_nofix.shape[0]),
+                            interpolation=cv2.INTER_AREA)
+    ncc_nofix = _ncc_common(preview_nofix, full_nofix)
+    del preview_nofix, full_nofix
+    timer.durations.clear()
+    timer.counts.clear()
+    _reset_launches(maxflow)
+    t0 = time.perf_counter()
+    pano.set_config(Config(proj=Projection.STEREOGRAPHIC, cut=True))
+    cut_preview = pano.get_preview()
+    torch.cuda.synchronize()
+    cut_wall = time.perf_counter() - t0
+    launches5 = _launches(maxflow)
+    cut_blocks = list(pano.stitch_params.state.masks.shape)
+    route = ("kernel 2 (grid_mincut_tiled)" if launches5[1] else
+             "kernel 1 (grid_mincut), resident" if
+             maxflow.grid_mincut.last_stats["resident"] else
+             "kernel 1 (grid_mincut), tiled route")
+    # kernel 1 against its plain version on the first cut of this
+    # re-composite, at the sten-fixed block shape the path gave it
+    graph = _first_cut_graph(torch, pano.stitch_params.state,
+                             [n for n, _ in pano.stitch_params.res.order])
+    err5, ms5, plain_ms5, _ = _solve_pair(
+        torch, maxflow, f"sten{cut_blocks[1]}x{cut_blocks[2]}", graph,
+        maxflow.grid_mincut, maxflow.grid_mincut_ref, 3, 0, card, "kernel")
+    resident5 = maxflow.grid_mincut.last_stats["resident"]
+    del graph
+    _line("slice5", connected=list(pano.connected), focal_true=f_true,
+          focals=[float(x) for x in focals], sten_circle=circle,
+          blocks=blocks, block_cells=blocks[1] * blocks[2],
+          preview_shape=list(preview.shape),
+          full_shape=list(full.shape), full_vs_preview_ncc=ncc_full,
+          center_dark_preview=dark[0], center_dark_full=dark[1],
+          center_dark_no_fix=dark_nofix,
+          full_vs_preview_ncc_no_fix=ncc_nofix, wall_s=wall,
+          full_wall_s=full_wall, stages_s=stages5,
+          max_memory_allocated=peak5, **lm5,
+          stitch_mincut_launches=list(launches5_stitch),
+          viewer={"zoom_in": zoomed, "crop": cropped,
+                  "crop_preview": list(crop_rect), "undo": undone,
+                  "redo": redone, "saved_shape": list(saved.shape),
+                  "get_panorama_roi_shape": list(want_shape),
+                  "save_s": save_wall},
+          cut={"launches": {"grid_mincut": launches5[0],
+                            "grid_mincut_tiled": launches5[1]},
+               "blocks": cut_blocks,
+               "block_cells": cut_blocks[1] * cut_blocks[2],
+               "route": route, "wall_s": cut_wall,
+               "first_cut": {"max_abs_err": err5, "kernel_ms": ms5,
+                             "plain_ms": plain_ms5,
+                             "resident": resident5},
+               "stages_s": dict(timer.durations),
+               "center_dark_preview": _center_dark(cut_preview)},
+          device=card)
+    os.environ.pop("SPT_SYNC_STAGES")
+    if tuple(pano.connected) != (12, 12):
+        raise RuntimeError(f"slice5 connected {pano.connected}")
+    if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
+        raise RuntimeError(f"slice5 focals {focals} vs true {f_true}")
+    if circle is None:
+        raise RuntimeError("slice5: the centre fix did not trigger")
+    if max(dark) >= 0.10 or dark_nofix <= 0.4:
+        raise RuntimeError(f"slice5 centre-dark {dark} with the fix, "
+                           f"{dark_nofix} without")
+    if circle_nofix is not None:
+        raise RuntimeError("slice5: fix_center=False estimated a "
+                           "circle")
+    if (abs(full.shape[0] - 2 * preview.shape[0]) > 8
+            or abs(full.shape[1] - 2 * preview.shape[1]) > 8):
+        raise RuntimeError(f"slice5 full-res {full.shape} is not about "
+                           f"2x the preview {preview.shape}")
+    if ncc_full < SLICE5_FIXED_NCC_GATE or ncc_nofix < 0.95:
+        raise RuntimeError(f"slice5 full-res vs preview NCC {ncc_full} "
+                           f"with the fix, {ncc_nofix} without")
+    if launches5_stitch != (0, 0):
+        raise RuntimeError(f"slice5 (cut=False) launched a min-cut "
+                           f"{launches5_stitch}")
+    if sum(launches5) < 11:
+        raise RuntimeError(f"slice5 cut=True re-composite: min-cut "
+                           f"launches {launches5}, wanted >= 11")
+    if cut_blocks[1] * cut_blocks[2] > maxflow.WHOLE_GRID_MAX_CELLS \
+            or resident5 != 0:
+        raise RuntimeError(f"slice5 cut=True blocks {cut_blocks}: wanted "
+                           f"kernel 1 on its tiled route, resident "
+                           f"{resident5}")
+    if not (zoomed and cropped and undone and redone and saved_ok
+            and tuple(saved.shape) == tuple(want_shape)):
+        raise RuntimeError(f"slice5 viewer: zoom {zoomed}, crop "
+                           f"{cropped}, undo {undone}, redo {redone}, "
+                           f"save {saved_ok}, saved {saved.shape} vs "
+                           f"get_panorama(roi) {want_shape}")
+    return launches5, err5
+
+
+def _stream_phase(torch, loops, card):
+    """Load + keypoints of each (name, view directory, init_size) in
+    ``loops`` with every image decoded first (the list path, as before
+    the streaming decode) and through the streaming decode, in turns
+    (list, stream, stream, list). Prints one stream line per loop; the
+    two paths must find the same keypoints, and the streamed SIFT's peak
+    memory on the slice-2 loop must not exceed the list path's."""
+    from simplepanorama_tpu_torch import Config
+    stream_rows = {}
+    for name, loop_paths, init in loops:
+        files = sorted(os.path.join(loop_paths, f)
+                       for f in os.listdir(loop_paths))
+        cfg = Config(init_size=init)
+        runs = {"list": [], "stream": []}
+        for mode in ("list", "stream", "stream", "list"):
+            runs[mode].append(_load_and_keypoints(
+                torch, files, cfg, mode == "stream"))
+        stream_rows[name] = runs
+        _line("stream", loop=name, views=len(files), init_size=init,
+              list_s=[r[0] for r in runs["list"]],
+              stream_s=[r[0] for r in runs["stream"]],
+              list_peak=[r[1] for r in runs["list"]],
+              stream_peak=[r[1] for r in runs["stream"]],
+              keypoints_list=runs["list"][0][2],
+              keypoints_stream=runs["stream"][0][2], device=card)
+        if runs["list"][0][2] != runs["stream"][0][2]:
+            raise RuntimeError(f"{name}: the stream found other "
+                               "keypoints than the list path")
+    peak_list = max(r[1] for r in stream_rows["slice2"]["list"])
+    peak_stream = max(r[1] for r in stream_rows["slice2"]["stream"])
+    if peak_stream > peak_list:
+        raise RuntimeError(f"slice2 SIFT peak {peak_stream} B streamed "
+                           f"vs {peak_list} B listed")
+
+
+def _sten_cpu_vs_card(torch, tmp, card):
+    """The little planet of a 12-view 300-px loop with its true geometry
+    (set_config + render_preview, no BA) on "cpu" and "cuda": the same
+    sten_circle, and the previews within NCC 0.98."""
+    import cv2
+    from simplepanorama_tpu_torch import Config, Projection, stitcher
+    from simplepanorama_tpu_torch.fixtures import fkh360_views
+    sten = Config(proj=Projection.STEREOGRAPHIC)
+    loop300, yaws300, f300 = fkh360_views(
+        12, 300, out_dir=os.path.join(tmp, "loop300"))
+    imgs300 = [cv2.imread(p) for p in loop300]
+    res300 = _loop_result(yaws300, f300, 300)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = stitcher.set_config(res300, imgs300, sten, device=dev)
+        out[dev] = (params.sten_circle, params.state.min_xy,
+                    stitcher.render_preview(params, sten))
+    ncc, shift = _ncc_aligned(out["cpu"][2], out["cuda"][2])
+    _line("cpu_vs_card", config="sten_known_geometry",
+          sten_circle_cpu=out["cpu"][0], sten_circle_cuda=out["cuda"][0],
+          min_xy=[list(out["cpu"][1]), list(out["cuda"][1])],
+          shapes=[list(out["cpu"][2].shape), list(out["cuda"][2].shape)],
+          ncc=ncc, shift=list(shift), device=card)
+    if out["cpu"][0] != out["cuda"][0] or out["cpu"][0] is None \
+            or ncc < 0.98:
+        raise RuntimeError("CPU and card little planets disagree")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -563,8 +868,7 @@ def main():
         # ---- kernel 1 vs its plain version ----
         errs1 = []
         for name, graph in (("grid48x160", grid),
-                            ("seam700", [t.contiguous() for t in
-                                         _seam_graph(torch, tmp, 700)])):
+                            ("seam700", _seam_graph(torch, tmp, 700))):
             err, ms_k, ms_r, stats = _solve_pair(
                 torch, maxflow, name, graph, maxflow.grid_mincut,
                 maxflow.grid_mincut_ref, 5, 5, card, "kernel")
@@ -581,7 +885,7 @@ def main():
 
         # ---- kernel 2 vs its plain version; kernel 1 beside it ----
         errs2 = []
-        seam = [t.contiguous() for t in _seam_graph(torch, tmp, 1400)]
+        seam = _seam_graph(torch, tmp, 1400)
         if seam[0].numel() <= maxflow.WHOLE_GRID_MAX_CELLS:
             raise RuntimeError(f"slice-2 seam block {tuple(seam[0].shape)} "
                                "is not over 1.2M cells")
@@ -603,9 +907,8 @@ def main():
         # blocks, and the cost of one BFS level ----
         for px in (850, 900, 950, 1000):
             _kernel_pair(torch, maxflow, f"seam{px}",
-                         [t.contiguous() for t in
-                          _seam_graph(torch, tmp, px)], 3, card,
-                         "crossover", view_px=px)
+                         _seam_graph(torch, tmp, px), 3, card, "crossover",
+                         view_px=px)
         maze = [torch.from_numpy(a).cuda() for a in maze_grid(128, 128, 0)]
         for name in ("grid_mincut", "grid_mincut_tiled"):
             def bfs(*a):
@@ -843,6 +1146,14 @@ def main():
                                "slice 3's BA problem, wanted 2")
         del preview, full, small, cams, data, streams, sums
 
+        launches5, err5 = _slice5(torch, paths, f_true, tmp, card)
+        errs1.append(err5)
+
+        _stream_phase(torch, (("slice", os.path.join(tmp, "loop"), 700),
+                              ("slice2", os.path.join(tmp, "loop2800"),
+                               1400),
+                              ("slice3", views3, 700)), card)
+
         # ---- the same 4 views through the port on the CPU and the card ----
         paths4, _, _ = fkh360_views(4, 640, yaw_step_deg=20.0, hfov_deg=45.0,
                                     roll_deg=3.0,
@@ -875,6 +1186,8 @@ def main():
                 raise RuntimeError(f"CPU and card panoramas disagree "
                                    f"({cfg_name})")
 
+        _sten_cpu_vs_card(torch, tmp, card)
+
     # no single PyTorch call computes a min cut or the block-sparse
     # normal-equation sums, so library_ms is null for all three
     print(json.dumps({"kernels": [
@@ -883,6 +1196,10 @@ def main():
          "source": sources["grid_mincut"],
          "replaces": "simplepanorama_tpu/ops/maxflow.py:366",
          "launches": launches1[0],
+         # its launches on each path that runs it (slice 5: the cut=True
+         # re-composite of the little planet)
+         "launches_by_path": {"slice": launches1[0], "slice2": launches2[0],
+                              "slice5": launches5[0]},
          # largest |cut value (kernel) - cut value (plain)| over its inputs
          "max_abs_err": max(errs1),
          "ms": timing1[0],
@@ -895,6 +1212,8 @@ def main():
          "source": sources["grid_mincut_tiled"],
          "replaces": "simplepanorama_tpu/ops/maxflow.py:666",
          "launches": launches2[1],
+         "launches_by_path": {"slice": launches1[1], "slice2": launches2[1],
+                              "slice5": launches5[1]},
          "max_abs_err": max(errs2),
          "ms": timing2[0],
          "plain_ms": timing2[1],

@@ -17,6 +17,7 @@ from simplepanorama_tpu_torch.config import (
     write_config_file,
 )
 from simplepanorama_tpu_torch.pipeline import Panorama, StitchCancelled
+from simplepanorama_tpu_torch.viewer import PanoramaViewer
 
 __version__ = "0.1.0"
 
@@ -28,5 +29,6 @@ __all__ = [
     "read_config_file",
     "write_config_file",
     "Panorama",
+    "PanoramaViewer",
     "StitchCancelled",
 ]

@@ -3,7 +3,8 @@
 Port of simplepanorama_tpu/pipeline.py (the reference's headless path,
 pan::panorama): construct with image paths and a device, `stitch(config)`,
 then `get_preview()` and `get_panorama()`; `save_state()` and
-`Panorama.from_state()` checkpoint the post-BA state and resume from it.
+`Panorama.from_state()` checkpoint the post-BA state and resume from it;
+`diagnose()` returns the tables of the stages before BA.
 Progress is reported through a callback and cancellation through a token
 polled at stage boundaries. The JAX package's background prefetch of the
 full-res sources is not ported.
@@ -76,6 +77,17 @@ def full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _checked_device(device) -> torch.device:
+    """``device`` as a torch.device, with full float32 precision set; a
+    CUDA device with no GPU present raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' asked for, but no CUDA device "
+                           "is available")
+    full_precision()
+    return device
+
+
 def crop_roi(full: np.ndarray, preview_hw, roi) -> np.ndarray:
     """The full-res crop of ``roi`` = (x, y, w, h) given in preview
     coordinates: each edge scaled by the full/preview size ratio and
@@ -98,11 +110,7 @@ class Panorama:
                  progress: Optional[Callable[[float, str], None]] = None,
                  device="cuda"):
         from simplepanorama_tpu_torch.io import ImageSet
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' asked for, but no CUDA device "
-                               "is available")
-        full_precision()
+        self.device = _checked_device(device)
         self.images = ImageSet(paths)
         self.progress = Progress(progress)
         self.cancel_token = CancelToken()
@@ -197,3 +205,31 @@ class Panorama:
         p.result = res
         p.set_config(config or Config())
         return p
+
+
+def diagnose(paths, config: Optional[Config] = None, device="cuda") -> dict:
+    """Single-threaded inspection run on ``device`` (panorama::test,
+    _panorama.cpp:572-609): load -> keypoints -> match -> adjacency,
+    returning the intermediate tables for debugging."""
+    from simplepanorama_tpu_torch.adjacency import build_adjacency
+    from simplepanorama_tpu_torch.features import extract_features
+    from simplepanorama_tpu_torch.geometry.focal import focal_from_hom
+    from simplepanorama_tpu_torch.geometry.graph import connected_components
+    from simplepanorama_tpu_torch.io import ImageSet
+    device = _checked_device(device)
+    cfg = config or Config()
+    images = ImageSet(paths)
+    images.load_resized(cfg.init_size, threads=1)
+    feats = extract_features(images.img_data, cfg, device=device)
+    sizes = [im.shape[:2] for im in images.img_data]
+    adjres = build_adjacency(feats, sizes, cfg)
+    comps = connected_components(adjres.adj)
+    return {
+        "n_images": len(images.img_data),
+        "keypoint_counts": [f.count for f in feats],
+        "raw_match_counts": adjres.raw_counts,
+        "adjacency": adjres.adj,
+        "hom_mat": adjres.hom_mat,
+        "components": [c.nodes for c in comps],
+        "focal_estimate": focal_from_hom(adjres.hom_mat, adjres.adj),
+    }

@@ -9,13 +9,58 @@ color math runs on the 0..255 scale.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplepanorama_tpu_torch.geometry.canvas import get_pan_dimension
 from simplepanorama_tpu_torch.ops.edt import distance_transform
+
+
+def pack_blocks(images: Sequence, masks: Sequence,
+                corners: Sequence[Tuple[int, int]]):
+    """Pad per-image ROI blocks (tensors, or numpy for the CPU) to one
+    common shape on the device of the first image, Hb to a multiple of 8
+    and Wb of 128, and compute the canvas geometry. Returns (imgs
+    (N, Hb, Wb, 3) f32, msks (N, Hb, Wb) f32, offs [(y, x)], canvas_hw)."""
+    sizes = [tuple(im.shape[:2]) for im in images]
+    d = get_pan_dimension(corners, sizes)
+    Hb = (max(s[0] for s in sizes) + 7) // 8 * 8
+    Wb = (max(s[1] for s in sizes) + 127) // 128 * 128
+    dev = images[0].device if torch.is_tensor(images[0]) else "cpu"
+    offs = [(ty - d.min_y, tx - d.min_x) for tx, ty in corners]
+    return (pad_stack(images, (Hb, Wb, 3), dev),
+            pad_stack(masks, (Hb, Wb), dev), offs, (d.height, d.width))
+
+
+def pad_stack(blocks: Sequence, shape, dev) -> torch.Tensor:
+    """(N,) + ``shape`` float32 zeros with block i in its top-left corner."""
+    out = torch.zeros((len(blocks),) + tuple(shape), dtype=torch.float32,
+                      device=dev)
+    for i, b in enumerate(blocks):
+        out[i, :b.shape[0], :b.shape[1]] = torch.as_tensor(b, device=dev)
+    return out
+
+
+def blend(method: str, images: Sequence, seam_masks: Sequence,
+          orig_masks: Sequence, corners: Sequence[Tuple[int, int]],
+          bands: int = 2, sigma: float = 7.0) -> np.ndarray:
+    """Blend per-image lists like stitch_parameters::get_preview. Returns
+    float32 (H, W, 3) on the 0..255 scale, on the host."""
+    imgs, seams, offs, hw = pack_blocks(images, seam_masks, corners)
+    if method == "NO_BLEND":
+        out = no_blend(imgs, seams, offs, hw)
+    elif method == "SIMPLE_BLEND":
+        out = simple_blend(imgs, seams, offs, hw)
+    elif method == "MULTI_BLEND":
+        origs = pad_stack(orig_masks, seams.shape[1:], seams.device)
+        out = multi_blend(imgs, seams, origs, offs, hw, bands=bands,
+                          sigma=float(sigma))
+    else:
+        raise ValueError(f"unknown blend method {method}")
+    return out.cpu().numpy()
 
 
 def offs_list(offs) -> List[Tuple[int, int]]:

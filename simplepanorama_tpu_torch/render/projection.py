@@ -13,7 +13,8 @@ reference, which wraps OpenCV's RotationWarper family):
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,3 +176,56 @@ def erode_mask(mask: torch.Tensor, iters: int = 4) -> torch.Tensor:
         m = -F.max_pool2d(-F.pad(m, (1, 1, 1, 1), value=1.0), 3, stride=1)
         m = m * interior
     return (m > 0.5).reshape(shape)
+
+
+@dataclasses.dataclass
+class ProjData:
+    """Warped images/masks/corners (proj::proj_data); the crops are views
+    of one padded batch on the device."""
+    imgs: List[torch.Tensor]        # (h_i, w_i, 3) float32 per image
+    masks: List[torch.Tensor]       # (h_i, w_i) bool
+    corners: List[Tuple[int, int]]  # (tl_x, tl_y)
+
+
+def get_proj_parameters(kind: str, scale: float,
+                        images: Sequence[np.ndarray],
+                        Rs: Sequence[np.ndarray],
+                        Ks: Sequence[np.ndarray],
+                        connectivity: Sequence[float],
+                        device="cpu") -> ProjData:
+    """Warp every connected image on ``device`` (proj::get_proj_parameters,
+    _projection.cpp:422-454). Images are BGR uint8 or float; output floats
+    keep the input scale."""
+    sel = [i for i in range(len(images)) if connectivity[i] > 0]
+    rois = {}
+    for i in sel:
+        h, w = images[i].shape[:2]
+        rois[i] = roi_for_image(kind, scale, Rs[i], Ks[i], h, w)
+    out_h = (max(rois[i][3] for i in sel) + 7) // 8 * 8
+    out_w = (max(rois[i][2] for i in sel) + 127) // 128 * 128
+    Hs = max(im.shape[0] for im in images)
+    Ws = max(im.shape[1] for im in images)
+
+    n = len(sel)
+    src = torch.zeros((n, Hs, Ws, 3), dtype=torch.float32, device=device)
+    Ka_b = np.zeros((n, 3, 3), np.float32)
+    R_b = np.zeros((n, 3, 3), np.float32)
+    c_b = np.zeros((n, 2), np.float32)
+    hw_b = np.zeros((n, 2), np.int64)
+    for b, i in enumerate(sel):
+        h, w = images[i].shape[:2]
+        src[b, :h, :w] = torch.as_tensor(images[i], device=device)
+        Ka_b[b] = adjusted_K(Ks[i], h, w)
+        R_b[b] = np.asarray(Rs[i], np.float32)
+        c_b[b] = (rois[i][0], rois[i][1])
+        hw_b[b] = (h, w)
+
+    T = lambda a: torch.as_tensor(a, device=device)
+    warped, masks = warp_backward_batch(
+        src, T(Ka_b), T(R_b), T(c_b), float(scale), kind, out_h, out_w,
+        T(hw_b), erode_iters=4)
+    corners = [(rois[i][0], rois[i][1]) for i in sel]
+    return ProjData(
+        imgs=[warped[b, :rois[i][3], :rois[i][2]] for b, i in enumerate(sel)],
+        masks=[masks[b, :rois[i][3], :rois[i][2]] for b, i in enumerate(sel)],
+        corners=corners)

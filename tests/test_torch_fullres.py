@@ -221,16 +221,3 @@ def test_get_panorama_matches_jax(tmp_path):
         full, pt.get_preview().shape[:2], roi))
     pt.set_config(TConfig(**kw))
     assert pt._full_pano is None
-
-
-@pytest.mark.parametrize("entry", ["stereographic_fix"])
-def test_unported_entry_points_raise(entry):
-    """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item ("ROADMAP: port queue, ..."), before any work."""
-    from simplepanorama_tpu_torch.config import Projection
-    imgs, full, res = _views()
-    tres = stitch_result_from_numpy(res)
-    cfg = {"stereographic_fix": TConfig(proj=Projection.STEREOGRAPHIC,
-                                        fix_center=True)}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP: port queue"):
-        tstitcher.set_config(tres, imgs, cfg)
