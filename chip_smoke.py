@@ -29,10 +29,12 @@ Phases, each printing one line per input:
   kernel3 assemble_streams (kernel 3) against assemble_streams_ref, with
           and without the Schur terms, on random streams (N=8, M=1024 and
           N=40, M=20,480); the same on slice 3's own BA problem follows
-          the slice3 phase;
+          the slice3 phase, and at every capacity bucket of the BA's
+          schedule in the ba phase;
   slice   a 12-view 360-degree loop of 700-px views through
           Panorama(paths, device="cuda").stitch(Config(cut=True))
-          .get_preview(), with both kernels' launches counted;
+          .get_preview(), with the min-cut launches counted, and kernel
+          3's (one per LM trial executed, as on every stitch below);
   slice2  a 12-view loop of 2800-px views through
           Panorama(paths, device="cuda").stitch(Config(cut=True,
           init_size=1400, gain_compensation=True)), then get_preview()
@@ -48,6 +50,12 @@ Phases, each printing one line per input:
           against the port's own assembly (ba._assemble_cache +
           _schur_solve_system), which is also timed, as computed and in
           the Jacobi scaling of the solve;
+  ba      the BA problems of slice 1 (relaxed) and slice 3 (Lowe) again
+          through stitch.bundle_adjust_stitching, fused=False (eager
+          trials) and fused=True (each bucket's trial a CUDA graph) in
+          turns, three of each: walls, LM trials, host reads, graphs,
+          kernel-3 launches, the cameras of the two, the device's busy
+          share (torch.profiler), kernel 3 at each bucket;
   slice5  the little planet: the slice-3 loop through
           Panorama(paths, device="cuda").stitch(Config(proj=
           STEREOGRAPHIC)) (fix_center on, as by default), get_preview()
@@ -69,7 +77,9 @@ Phases, each printing one line per input:
 
 Then one JSON line with the kernels' numbers and, last, the result line.
 Any failure raises: the exit code is then non-zero and no result line
-is printed. It needs no network and starts no process of its own except
+is printed. Without a CUDA card, or run alone (without the
+simplepanorama_tpu_torch package beside it), it exits with code 1 before
+any phase. It needs no network and starts no process of its own except
 nvidia-smi and nvcc.
 """
 
@@ -87,8 +97,12 @@ import time
 import numpy as np
 
 
+_T0 = time.perf_counter()
+
+
 def _line(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def _nvidia_smi():
@@ -442,23 +456,29 @@ def _kernel3_pair(torch, ba_kernel, name, streams, n_cams, with_schur,
     bound; the sums run in another order), both as computed and in the
     Jacobi scaling of the plain U's diagonal (so that the small focal and
     principal-point entries are held to the same share of their own
-    scale as the rotation entries); prints one line; returns (kernel
-    outputs, largest |kernel - plain|, kernel ms, plain ms, (bound ms,
-    bound side), launches of the checking call)."""
+    scale as the rotation entries), and a second call equal bit for bit;
+    prints one line; returns (kernel outputs, largest |kernel - plain|,
+    kernel ms, plain ms, (bound ms, bound side), launches of the checking
+    call). The kernel is timed as the LM trial calls it: int32 ids and
+    the bucket's workspace made once."""
     before = ba_kernel.assemble_streams.launches
     got = ba_kernel.assemble_streams(*streams, n_cams, with_schur=with_schur)
     launches = ba_kernel.assemble_streams.launches - before
     want = ba_kernel.assemble_streams_ref(*streams, n_cams,
                                           with_schur=with_schur)
+    ws = ba_kernel.workspace(streams[0].shape[0], n_cams, streams[0].device)
+    args = list(streams[:9]) + [t.to(torch.int32) for t in streams[9:]]
+    call = lambda *a: ba_kernel.assemble_streams(*a, n_cams,
+                                                 with_schur=with_schur, ws=ws)
+    again = call(*args)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     raw = _max_err(got, want)
     scaled = _max_err(_jacobi(torch, got, want[0]),
                       _jacobi(torch, want, want[0]))
     errs = {k: v[0] for k, v in raw.items()}
     scales = {k: v[1] for k, v in raw.items()}
-    call = lambda *a: ba_kernel.assemble_streams(*a, n_cams,
-                                                 with_schur=with_schur)
-    ms_k = _time_ms(torch, call, streams)
+    ms_k = _time_ms(torch, call, args)
     ms_r = _time_ms(torch, lambda *a: ba_kernel.assemble_streams_ref(
         *a, n_cams, with_schur=with_schur), streams)
     bound = _ba_bound(streams[9], streams[10], n_cams, with_schur)
@@ -466,16 +486,17 @@ def _kernel3_pair(torch, ba_kernel, name, streams, n_cams, with_schur,
           with_schur=with_schur, max_abs_err=errs, plain_max_abs=scales,
           jacobi_max_abs_err={k: v[0] for k, v in scaled.items()},
           jacobi_plain_max_abs={k: v[1] for k, v in scaled.items()},
+          same_bits_twice=same_bits, ctas=ws.ctas, per_cta=ws.per_cta,
           kernel_ms=ms_k, plain_ms=ms_r,
-          device_ms=_device_ms(torch, call, streams,
-                               ("partial_kernel", "reduce_kernel")),
+          device_ms=_device_ms(torch, call, args, ("assemble_kernel",), 20),
           bound_ms=bound[0], bound_by=bound[1], device=card, **extra)
     bad = [(k, form) for form, e in (("raw", raw), ("jacobi", scaled))
            for k, (err, scale) in e.items() if not err <= 1e-3 * scale + 1e-4]
-    if bad or launches != 1:
+    if bad or launches != 1 or not same_bits:
         raise RuntimeError(f"assemble_streams disagrees with its plain "
-                           f"version on {name} ({bad}) or launched "
-                           f"{launches} times")
+                           f"version on {name} ({bad}), launched "
+                           f"{launches} times or changed bits between two "
+                           f"calls ({not same_bits})")
     return got, max(errs.values()), ms_k, ms_r, bound, launches
 
 
@@ -518,23 +539,43 @@ def _device_ms_by_kernel(torch, fn, args, reps=2):
 
 
 @contextlib.contextmanager
-def _count_lm(ba):
-    """Count the incremental bundle adjustment's LM runs, their trials
-    (accepted and rejected) and accepted steps while the block runs."""
-    counts = {"lm_runs": 0, "lm_trials": 0, "lm_accepted": 0}
-    lm_run_impl = ba.lm_run_impl
+def _count_lm(stitch):
+    """Count what the incremental bundle adjustment runs while the block
+    runs, from the counts the chunk driver (stitch._lm_chunk) returns,
+    read once per chunk: LM runs, their trials (accepted and rejected),
+    accepted steps, trials executed (the warm-up before a capture and the
+    no-op trials after a run's end included: kernel 3 launches once per
+    executed trial), host reads of the termination flag, CUDA graphs
+    captured and the host seconds spent capturing."""
+    counts = {"lm_runs": 0, "lm_trials": 0, "lm_accepted": 0,
+              "trials_executed": 0, "host_reads": 0, "graphs": 0,
+              "capture_s": 0.0}
+    chunk = stitch._lm_chunk
 
     def counted(*a, **kw):
-        out = lm_run_impl(*a, **kw)
-        counts["lm_runs"] += 1
-        counts["lm_trials"] += int(out.n_iter)
-        counts["lm_accepted"] += int(out.n_accepted)
-        return out
-    ba.lm_run_impl = counted
+        cams, c = chunk(*a, **kw)
+        counts["lm_runs"] += c.runs
+        counts["lm_trials"] += int(c.trials)
+        counts["lm_accepted"] += int(c.accepted)
+        counts["trials_executed"] += c.executed
+        counts["host_reads"] += c.reads
+        counts["graphs"] += c.graphs
+        counts["capture_s"] += c.capture_s
+        return cams, c
+    stitch._lm_chunk = counted
     try:
         yield counts
     finally:
-        ba.lm_run_impl = lm_run_impl
+        stitch._lm_chunk = chunk
+
+
+def _check_kernel3_path(name, launches, lm):
+    """Kernel 3 launched once per trial executed on the path ``name``."""
+    if launches != lm["trials_executed"] or launches < lm["lm_trials"] \
+            or lm["lm_trials"] < 1:
+        raise RuntimeError(f"{name}: kernel 3 launched {launches} times for "
+                           f"{lm['trials_executed']} trials executed "
+                           f"({lm['lm_trials']} LM trials)")
 
 
 def _cli_run(torch, cli, timer, maxflow, ba_kernel, argv):
@@ -595,27 +636,19 @@ def _slice3_ba_problem(torch, comp, adjres, res, n_pad=16):
     return cams, data, active, active_m
 
 
-def _system_from_sums(ba, sums, aug, lam, active, fast):
-    """The camera system (S, rhs) of ba._schur_solve_system rebuilt from
-    assemble_streams' (U, +J^T r, YW, yeb)."""
-    U, eA, YW, yeb = sums
-    U_aug = ba._augment(U, lam, aug)
-    S, rhs = (U_aug, -eA) if fast else (U_aug - YW, -eA - yeb)
-    return ba._mask_inactive(S, rhs, active)
-
-
 def _slice5(torch, paths, f_true, tmp, card):
     """Slice 5 on the card: the little planet of ``paths`` (the slice-3
     loop; full-res twice the 700-px preview), the viewer on it, the same
     result without the fix and re-composited with graph-cut seams (no
     second BA). Prints the slice5 line, checks its gates, and returns
-    the min-cut launches (kernel 1, kernel 2) of the re-composite and
+    the min-cut launches (kernel 1, kernel 2) of the re-composite,
     kernel 1's |cut difference| from its plain version on the
-    re-composite's first seam graph."""
+    re-composite's first seam graph, and kernel 3's launches in the
+    stitch (one per LM trial executed)."""
     import cv2
     from simplepanorama_tpu_torch import (Config, Panorama, PanoramaViewer,
-                                          Projection, ba)
-    from simplepanorama_tpu_torch.ops import maxflow
+                                          Projection, stitch)
+    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
     from simplepanorama_tpu_torch.utils.timing import global_timer
     timer = global_timer()
     os.environ["SPT_SYNC_STAGES"] = "1"
@@ -624,13 +657,15 @@ def _slice5(torch, paths, f_true, tmp, card):
     timer.counts.clear()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(maxflow)
+    ba_kernel.assemble_streams.launches = 0
     t0 = time.perf_counter()
-    with _count_lm(ba) as lm5:
+    with _count_lm(stitch) as lm5:
         pano = Panorama(paths, device="cuda").stitch(sten)
     preview = pano.get_preview()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches5_stitch = _launches(maxflow)
+    launches5_k3 = ba_kernel.assemble_streams.launches
     stages5 = dict(timer.durations)
     t0 = time.perf_counter()
     full = pano.get_panorama()
@@ -701,6 +736,7 @@ def _slice5(torch, paths, f_true, tmp, card):
           full_vs_preview_ncc_no_fix=ncc_nofix, wall_s=wall,
           full_wall_s=full_wall, stages_s=stages5,
           max_memory_allocated=peak5, **lm5,
+          assemble_streams_launches=launches5_k3,
           stitch_mincut_launches=list(launches5_stitch),
           viewer={"zoom_in": zoomed, "crop": cropped,
                   "crop_preview": list(crop_rect), "undo": undone,
@@ -721,6 +757,7 @@ def _slice5(torch, paths, f_true, tmp, card):
     os.environ.pop("SPT_SYNC_STAGES")
     if tuple(pano.connected) != (12, 12):
         raise RuntimeError(f"slice5 connected {pano.connected}")
+    _check_kernel3_path("slice5", launches5_k3, lm5)
     if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
         raise RuntimeError(f"slice5 focals {focals} vs true {f_true}")
     if circle is None:
@@ -755,7 +792,7 @@ def _slice5(torch, paths, f_true, tmp, card):
                            f"{cropped}, undo {undone}, redo {redone}, "
                            f"save {saved_ok}, saved {saved.shape} vs "
                            f"get_panorama(roi) {want_shape}")
-    return launches5, err5
+    return launches5, err5, launches5_k3
 
 
 def _stream_phase(torch, loops, card):
@@ -821,7 +858,164 @@ def _sten_cpu_vs_card(torch, tmp, card):
         raise RuntimeError("CPU and card little planets disagree")
 
 
+def _busy_share(torch, stitch, run, chunks):
+    """The device's busy share over the first ``chunks`` chunks of the BA
+    that ``run()`` drives: torch.profiler (device activity only) on from
+    the first chunk's start to the end of chunk ``chunks`` (a window,
+    because the profiler's post-processing of a whole eager BA, ~300k
+    kernels and their host ops, takes minutes). Returns (device seconds in CUDA kernels and
+    copies, window seconds); device seconds None when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    chunk = stitch._lm_chunk
+    window = {"n": 0}
+
+    def profiled(*a, **kw):
+        if window["n"] == 0:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        out = chunk(*a, **kw)
+        window["n"] += 1
+        if window["n"] == chunks:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            prof.stop()
+        return out
+    stitch._lm_chunk = profiled
+    try:
+        run()
+    finally:
+        stitch._lm_chunk = chunk
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages())
+    return (us / 1e6 if us > 0 else None), window["t1"] - window["t0"]
+
+
+# chunks of the schedule in the profiled window of the BA's busy share:
+# a fifth of a 12-view schedule's, with its first capture for the graphs
+BUSY_CHUNKS = 2
+
+
+def _ba_phase(torch, problems, card):
+    """Each recorded BA problem {name: (comp, adjres, sizes, focal, cfg)}
+    through stitch.bundle_adjust_stitching on the card with fused=False
+    (eager trials) and fused=True (the buckets' CUDA graphs), in turns,
+    three of each (eager, graph, graph, eager, eager, graph); one line per
+    run, then one run of each with the device's busy share measured over
+    its first chunks (torch.profiler), and
+    kernel 3 at each capacity bucket of the schedule (the streams of that
+    bucket's last state) against its plain version. Checks: the same LM
+    trials and accepted steps in every run, cameras within 1e-5 relative
+    between the two, kernel 3 launched once per trial executed, one graph
+    per bucket. Host syncs raise inside every trial of both (the LM sets
+    torch.cuda.set_sync_debug_mode("error") around them). Returns
+    {name: {"launches": kernel-3 launches of the runs, "buckets": the
+    kernel3 results of the largest bucket}}."""
+    from simplepanorama_tpu_torch import ba, stitch
+    from simplepanorama_tpu_torch.ops import ba_kernel
+    out = {}
+    for name, (comp, adjres, sizes, focal, cfg) in problems.items():
+        ref = graphs = None
+        launches = 0
+        walls = {False: [], True: []}
+        chunks = []
+        for fused in (False, True, True, False, False, True):
+            ba_kernel.assemble_streams.launches = 0
+            record = fused and not walls[True]    # the first graph run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _count_lm(stitch) as lm:
+                counted = stitch._lm_chunk
+
+                def recording(cams, active, data, *a, **kw):
+                    res = counted(cams, active, data, *a, **kw)
+                    if record:
+                        chunks.append((res[0], active.clone(), data))
+                    return res
+                stitch._lm_chunk = recording
+                try:
+                    res = stitch.bundle_adjust_stitching(
+                        comp, adjres, sizes, focal, cfg, device="cuda",
+                        fused=fused)
+                finally:
+                    stitch._lm_chunk = counted
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walls[fused].append(wall)
+            k3 = ba_kernel.assemble_streams.launches
+            launches += k3
+            if ref is None:
+                ref = (res, lm)
+            if fused and graphs is None:
+                graphs = lm["graphs"]
+            df = float(np.max(np.abs(res.K[:, 0, 0] / ref[0].K[:, 0, 0]
+                                      - 1.0)))
+            drot = float(np.max(np.abs(res.rot - ref[0].rot)))
+            _line("ba", problem=name, fused=fused, fast=bool(cfg.fast),
+                  wall_s=wall, **lm,
+                  ms_per_trial=wall * 1e3 / max(1, lm["lm_trials"]),
+                  assemble_streams_launches=k3, sync_debug="error",
+                  read_every=ba.READ_EVERY,
+                  focal_rel_diff_vs_first=df, rot_diff_vs_first=drot,
+                  focals=[float(x) for x in res.K[:, 0, 0]], device=card)
+            if (lm["lm_runs"], lm["lm_trials"], lm["lm_accepted"]) != (
+                    ref[1]["lm_runs"], ref[1]["lm_trials"],
+                    ref[1]["lm_accepted"]):
+                raise RuntimeError(f"ba {name}: fused={fused} ran {lm}, the "
+                                   f"first run {ref[1]}")
+            if df > 1e-5 or drot > 1e-5:
+                raise RuntimeError(f"ba {name}: fused={fused} cameras differ "
+                                   f"from the first run's by {df} (focal) "
+                                   f"and {drot} (rotation)")
+            _check_kernel3_path(f"ba {name}", k3, lm)
+        busy = {}
+        for fused in (False, True):
+            dev_s, wall = _busy_share(
+                torch, stitch, lambda: stitch.bundle_adjust_stitching(
+                    comp, adjres, sizes, focal, cfg, device="cuda",
+                    fused=fused), BUSY_CHUNKS)
+            busy["graph" if fused else "eager"] = {
+                "chunks": BUSY_CHUNKS, "device_s": dev_s, "window_s": wall,
+                "busy_share": dev_s / wall if dev_s else None}
+        # kernel 3 at each bucket the graph run used: the bucket's last
+        # chunk's final state
+        buckets = {}
+        for cams, active, data in chunks:
+            buckets[(cams.focal.shape[0], data.mi.shape[0])] = \
+                (cams, active, data)
+        results = {}
+        for (n_cap, m_cap), (cams, active, data) in sorted(buckets.items()):
+            active_m = ba._active_matches(data, active)
+            streams = ba.streams_from_problem(
+                cams, data, active_m, float(cfg.lambda_), active, n_cap,
+                bool(cfg.fast))
+            results[n_cap, m_cap] = _kernel3_pair(
+                torch, ba_kernel, f"{name}_bucket_n{n_cap}_m{m_cap}",
+                streams, n_cap, not cfg.fast, card,
+                active_matches=int(active_m.sum()))
+        _line("ba", problem=name, summary=True,
+              eager_walls_s=walls[False], graph_walls_s=walls[True],
+              busy=busy, buckets=[list(k) for k in sorted(buckets)],
+              device=card)
+        if graphs != len(buckets):
+            raise RuntimeError(f"ba {name}: {graphs} graphs captured for "
+                               f"{len(buckets)} capacity buckets")
+        out[name] = {"launches": launches,
+                     "largest": results[max(results)]}
+    return out
+
+
 def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "simplepanorama_tpu_torch")):
+        # run alone, without the program beside it: nothing to smoke
+        raise SystemExit("chip_smoke: simplepanorama_tpu_torch/ is not "
+                         f"beside {os.path.abspath(__file__)}; run this "
+                         "script from the root of a checkout of the "
+                         "repository")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -940,13 +1134,29 @@ def main():
         timer.durations.clear()
         timer.counts.clear()
         _reset_launches(maxflow)
+        ba_kernel.assemble_streams.launches = 0
+        problems = {}    # the BA problems the ba phase runs again
+        bundle_adjust = tstitch.bundle_adjust_stitching
+
+        def recording(name):
+            def run(comp, adjres, sizes, focal, cfg, *a, **kw):
+                problems[name] = (comp, adjres, sizes, focal, cfg)
+                return bundle_adjust(comp, adjres, sizes, focal, cfg, *a,
+                                     **kw)
+            return run
         t0 = time.perf_counter()
-        with _count_lm(ba) as lm1:
-            pano = Panorama(paths, device="cuda").stitch(Config(cut=True))
+        tstitch.bundle_adjust_stitching = recording("slice1_relaxed")
+        try:
+            with _count_lm(tstitch) as lm1:
+                pano = Panorama(paths, device="cuda").stitch(
+                    Config(cut=True))
+        finally:
+            tstitch.bundle_adjust_stitching = bundle_adjust
         preview = pano.get_preview()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches1 = _launches(maxflow)
+        launches1_k3 = ba_kernel.assemble_streams.launches
         focals = pano.result.K[:, 0, 0]
         cov = _coverage(preview)
         _line("slice", connected=list(pano.connected),
@@ -955,9 +1165,11 @@ def main():
               focal_true=f_true, focals=[float(x) for x in focals],
               blocks=list(pano.stitch_params.state.masks.shape),
               preview_shape=list(preview.shape), coverage=cov, wall_s=wall,
-              stages_s=dict(timer.durations), **lm1, device=card)
+              stages_s=dict(timer.durations), **lm1,
+              assemble_streams_launches=launches1_k3, device=card)
         if tuple(pano.connected) != (12, 12):
             raise RuntimeError(f"slice connected {pano.connected}")
+        _check_kernel3_path("slice", launches1_k3, lm1)
         if launches1[0] < 11:
             raise RuntimeError(f"only {launches1[0]} kernel-1 launches")
         if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
@@ -975,13 +1187,16 @@ def main():
         timer.counts.clear()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(maxflow)
+        ba_kernel.assemble_streams.launches = 0
         t0 = time.perf_counter()
-        pano = Panorama(paths, device="cuda").stitch(
-            Config(cut=True, init_size=1400, gain_compensation=True))
+        with _count_lm(tstitch) as lm2:
+            pano = Panorama(paths, device="cuda").stitch(
+                Config(cut=True, init_size=1400, gain_compensation=True))
         preview = pano.get_preview()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches2 = _launches(maxflow)
+        launches2_k3 = ba_kernel.assemble_streams.launches
         t0 = time.perf_counter()
         full = pano.get_panorama()
         torch.cuda.synchronize()
@@ -1007,10 +1222,11 @@ def main():
               full_vs_preview_shift=list(shift_full), wall_s=wall,
               full_wall_s=full_wall, stages_s=dict(timer.durations),
               max_memory_allocated=peak,
-              solver_stats=maxflow.grid_mincut_tiled.last_stats,
-              device=card)
+              solver_stats=maxflow.grid_mincut_tiled.last_stats, **lm2,
+              assemble_streams_launches=launches2_k3, device=card)
         if tuple(pano.connected) != (12, 12):
             raise RuntimeError(f"slice2 connected {pano.connected}")
+        _check_kernel3_path("slice2", launches2_k3, lm2)
         if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
             raise RuntimeError(f"slice2 focals {focals} vs true {f_true}")
         if blocks[1] * blocks[2] <= maxflow.WHOLE_GRID_MAX_CELLS:
@@ -1040,17 +1256,11 @@ def main():
         state = os.path.join(tmp, "slice3.npz")
         prev_p = os.path.join(tmp, "slice3_preview.jpg")
         full_p = os.path.join(tmp, "slice3_full.jpg")
-        seen = {}
-        bundle_adjust = tstitch.bundle_adjust_stitching
-
-        def recording(comp, adjres, *a, **kw):   # the run's BA problem
-            seen.update(comp=comp, adjres=adjres)
-            return bundle_adjust(comp, adjres, *a, **kw)
         runs = {}
-        tstitch.bundle_adjust_stitching = recording
+        tstitch.bundle_adjust_stitching = recording("slice3_lowe")
         try:
             for run in ("cold", "warm"):
-                with _count_lm(ba) as lm3:
+                with _count_lm(tstitch) as lm3:
                     runs["stitch_" + run] = _cli_run(
                         torch, cli, timer, maxflow, ba_kernel, [
                             views3, "--fast", "--timing", "--save-state",
@@ -1090,6 +1300,12 @@ def main():
             raise RuntimeError(f"slice3 full-res vs preview NCC {ncc_full}")
         if any(r["mincut_launches"] != [0, 0] for r in runs.values()):
             raise RuntimeError("slice3 (cut=False) launched a min-cut")
+        for run in ("cold", "warm"):
+            _check_kernel3_path("slice3 " + run, runs["stitch_" + run][
+                "assemble_streams_launches"], runs["stitch_" + run])
+            if runs["full_" + run]["assemble_streams_launches"]:
+                raise RuntimeError("slice3: the resumed full-res render "
+                                   "launched kernel 3")
         launches3_path = sum(r["assemble_streams_launches"]
                              for r in runs.values())
         os.environ.pop("SPT_SYNC_STAGES")
@@ -1098,7 +1314,7 @@ def main():
         # the relaxed one (b = t), against the plain version and the
         # port's own assembly ----
         cams, data, active, active_m = _slice3_ba_problem(
-            torch, seen["comp"], seen["adjres"], res3)
+            torch, *problems["slice3_lowe"][:2], res3)
         lam = float(Config().lambda_)
         n_pad = cams.focal.shape[0]
         probe3 = 0
@@ -1110,9 +1326,9 @@ def main():
                                            n_pad, fast=fast)
                 return cache, ba._schur_solve_system(cache, active_m, lam,
                                                      active, fast)
-            streams = ba_kernel.streams_from_problem(
+            streams = ba.streams_from_problem(
                 cams, data, active_m, lam, active, n_pad, fast)
-            ms_streams = _time_ms(torch, ba_kernel.streams_from_problem, (
+            ms_streams = _time_ms(torch, ba.streams_from_problem, (
                 cams, data, active_m, lam, active, n_pad, fast))
             cache, (S_ref, rhs_ref, _) = assembly()
             ms_dense = _time_ms(torch, assembly, ())
@@ -1122,8 +1338,7 @@ def main():
                 active_matches=int(active_m.sum()))
             probe3 += n
             errs3.append(err)
-            S, rhs = _system_from_sums(ba, sums, cache.aug, lam, active,
-                                       fast)
+            S, rhs = ba._system(sums, cache.aug, lam, active, fast)
             rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
             dS, drhs = rel(S, S_ref), rel(rhs, rhs_ref)
             # and in the Jacobi scaling that _solve_preconditioned gives
@@ -1140,13 +1355,20 @@ def main():
                 raise RuntimeError(f"kernel 3 vs the port's BA assembly on "
                                    f"{name}: S {dS} / {jdS}, rhs {drhs} / "
                                    f"{jdrhs} (as computed / Jacobi-scaled)")
-        timing3 = (ms_k, ms_r, bound)     # the relaxed system's
         if probe3 != 2:
             raise RuntimeError(f"kernel 3 launched {probe3} times checking "
                                "slice 3's BA problem, wanted 2")
         del preview, full, small, cams, data, streams, sums
 
-        launches5, err5 = _slice5(torch, paths, f_true, tmp, card)
+        # ---- the bundle adjustment alone: slice 1's problem (relaxed)
+        # and slice 3's (Lowe), eager trials against CUDA graphs ----
+        ba_runs = _ba_phase(torch, problems, card)
+        for r in ba_runs.values():
+            errs3.append(r["largest"][1])
+        timing3 = ba_runs["slice1_relaxed"]["largest"][2:5]
+
+        launches5, err5, launches5_k3 = _slice5(torch, paths, f_true, tmp,
+                                                card)
         errs1.append(err5)
 
         _stream_phase(torch, (("slice", os.path.join(tmp, "loop"), 700),
@@ -1224,13 +1446,21 @@ def main():
          "route": "cuda",
          "source": sources["assemble_streams"],
          "replaces": "simplepanorama_tpu/ops/ba_kernel.py:140",
-         # its launches in slice 3's four commands: 0, as it is wired into
-         # no path, like the TPU kernel in the JAX package
-         "launches": launches3_path,
+         # once per LM trial executed: its launches in the stitches of
+         # slices 1, 2 and 5 and in slice 3's four CLI commands
+         "launches": launches1_k3 + launches2_k3 + launches3_path
+         + launches5_k3,
+         "launches_by_path": {"slice": launches1_k3, "slice2": launches2_k3,
+                              "slice3": launches3_path,
+                              "slice5": launches5_k3,
+                              "ba_phase": {k: v["launches"]
+                                           for k, v in ba_runs.items()}},
          # its checking calls on slice 3's own BA problem, kernel3 phase
          "probe_launches": probe3,
          # largest |kernel - plain| over every output of every input
          "max_abs_err": max(errs3),
+         # times and bound at the largest capacity bucket of slice 1's
+         # schedule (relaxed objective), as the LM trial calls it
          "ms": timing3[0],
          "plain_ms": timing3[1],
          "bound_ms": timing3[2][0],

@@ -11,16 +11,24 @@ model, state, residual, LM schedule, augmentation and Schur reduction.
     6 consecutive rejections; error = sum over matches of ||r||;
   * Schur: (U* - sum Y W^T) da = e_A - sum Y e_B, db = V*^{-1}(e_B - W^T da).
 
-The LM while_loop is a Python loop with one host sync per trial. The
-per-pair H chain and its Jacobian come from torch.func.jacfwd + vmap over
-the realized camera pairs; the per-match table expansion is an index
-gather with an explicit clamp. Both objectives are ported: the relaxed
-one (fast=False) and Lowe's (fast=True), which keeps b = t fixed and
-solves U* da = e_A.
+One LM trial is a function of device tensors (``lm_trial``, the JAX
+package's while_loop body): the chain rule, the camera system summed by
+ops/ba_kernel.assemble_streams (kernel 3 on the card, its plain version on
+the CPU), the solve, the back-substitution by gathers and the accept test,
+applied with torch.where alone. The host reads the termination flag once
+every READ_EVERY trials (``lm_run_eager``); on the card ``LMProgram``
+replays the trial as a CUDA graph between those reads. The per-pair H
+chain and its Jacobian come from torch.func.jacfwd + vmap over the
+realized camera pairs; the per-match table expansion is an index gather
+with an explicit clamp. Both objectives are ported: the relaxed one
+(fast=False) and Lowe's (fast=True), which keeps b = t fixed and solves
+U* da = e_A.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,6 +36,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from simplepanorama_tpu_torch.geometry.rotation import rodrigues
+from simplepanorama_tpu_torch.ops import ba_kernel
 
 _AUG_FOCAL = 1e-3
 _AUG_ANG = float(np.pi / 16.0)
@@ -175,9 +184,12 @@ def _jacobian_streams(cams: CamState, data: BAData, active_m, fast: bool):
 def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
                     n_cams: int, vaug_idx=None,
                     fast: bool = False) -> _JacCache:
-    """Jacobian-dependent half of the assemble: dense block-sparse J
-    (M, 2, 6N) from one-hot camera masks, then U = J^T J, e_A = -J^T r
-    and, in the relaxed objective, V, e_B and W = J^T B."""
+    """The dense form of the assemble, which the LM trial no longer runs:
+    block-sparse J (M, 2, 6N) from one-hot camera masks, then U = J^T J,
+    e_A = -J^T r and, in the relaxed objective, V, e_B and W = J^T B. The
+    tests hold kernel 3's system and the gathered back-substitution
+    against it, and chip_smoke.py times it as the assembly kernel 3
+    replaced."""
     N = n_cams
     r, Ai23, Aj23, B = _jacobian_streams(cams, data, active_m, fast)
 
@@ -193,10 +205,7 @@ def _assemble_cache(cams: CamState, data: BAData, active_m, cam_active,
     # Gauss-Newton sign: the step solves (J^T J + lam D) d = -J^T r
     eA = -torch.einsum("mra,mr->a", Jd, r[:, 2:])
 
-    aug = torch.cat([
-        (cams.focal[:, None] * _AUG_FOCAL).repeat(1, 3),
-        torch.full((N, 3), _AUG_ANG, dtype=U.dtype, device=U.device)],
-        1).reshape(-1)
+    aug = _aug_scales(cams.focal)
     focal_last = _focal_last(cams, cam_active, vaug_idx)
     if fast:
         z = U.new_zeros
@@ -253,8 +262,9 @@ def _cholesky_streams(Vinv, eB):
 
 def _schur_solve_system(cache: _JacCache, active_m, lam, cam_active,
                         fast: bool = False):
-    """Lambda-dependent half: diagonal augmentation and, in the relaxed
-    objective, V inverse and Schur reduction. Returns (S, rhs, Vinv);
+    """Lambda-dependent half of the dense form (see _assemble_cache):
+    diagonal augmentation and, in the relaxed objective, V inverse and
+    Schur reduction. Returns (S, rhs, Vinv);
     Vinv is None in fast mode, where S = U* and rhs = e_A."""
     U_aug = _augment(cache.U, lam, cache.aug)
     if fast:
@@ -282,18 +292,21 @@ def _augment(U, lam, aug):
 
 def _mask_inactive(S, rhs, cam_active):
     """Inactive cameras: identity diagonal block, zero rhs -> zero delta."""
-    act6 = cam_active.repeat_interleave(6)
+    act6 = cam_active[:, None].expand(-1, 6).reshape(-1)
     S = torch.where(act6[:, None] & act6[None, :], S, torch.zeros_like(S))
-    S = S + torch.diag(torch.where(act6, 0.0, 1.0).to(S.dtype))
+    S = S + torch.diag((~act6).to(S.dtype))
     return S, torch.where(act6, rhs, torch.zeros_like(rhs))
 
 
 def _solve_preconditioned(S, rhs):
-    """Jacobi-preconditioned solve (f32-friendly conditioning)."""
+    """Jacobi-preconditioned solve (f32-friendly conditioning). A singular
+    system gives non-finite values, as jnp.linalg.solve does, and the LM
+    rejects that trial: ``solve_ex`` neither raises nor reads its status
+    back to the host."""
     d = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(S)), min=1e-12))
     Dinv = 1.0 / d
     Ss = S * Dinv[:, None] * Dinv[None, :]
-    y = torch.linalg.solve(Ss, rhs * Dinv)
+    y = torch.linalg.solve_ex(Ss, rhs * Dinv)[0]
     return y * Dinv
 
 
@@ -311,51 +324,245 @@ def _apply_delta(cams: CamState, da, db, cam_active, active_m):
     return CamState(cams.focal + da[:, 0], cams.ppal + da[:, 1:3], rotvec, b)
 
 
+def _aug_scales(focal):
+    """(6N,) diagonal augmentation scales: focal * 1e-3 on a camera's
+    focal and principal point, pi / 16 on its rotation."""
+    N = focal.shape[0]
+    return torch.cat([
+        (focal[:, None] * _AUG_FOCAL).repeat(1, 3),
+        torch.full((N, 3), _AUG_ANG, dtype=focal.dtype, device=focal.device)],
+        1).reshape(-1)
+
+
+def _streams(cams: CamState, data: BAData, active_m, lam, focal_last,
+             fast: bool):
+    """The chain rule of one state: (r, Ai23, Aj23, B, V^-1, e_B, the nine
+    float streams of ops/ba_kernel.assemble_streams). The Lowe objective
+    (``fast``) has no V: V^-1 and e_B are None and the l and g streams
+    zeros."""
+    r, Ai, Aj, B = _jacobian_streams(cams, data, active_m, fast)
+    if fast:
+        z = r.new_zeros(r.shape[0])
+        Vinv = eB = None
+        lg = (z, z, z, z, z)
+    else:
+        V, eB = _v_and_eb(B, r)
+        Vinv = _v_inverse(V, focal_last, lam, active_m)
+        lg = _cholesky_streams(Vinv, eB)
+    return r, Ai, Aj, B, Vinv, eB, (Ai, Aj, B[:, 2:, :], r[:, 2:], *lg)
+
+
+def streams_from_problem(cams, data, active_m, lam, cam_active, n_cams: int,
+                         fast: bool):
+    """The 11 input streams of ops/ba_kernel.assemble_streams for one BA
+    state of ``n_cams`` camera slots (``cam_active`` marks the live ones),
+    as tests/test_ba_kernel.py rebuilds them from ba._assemble: Ai, Aj
+    (M, 2, 6), B23 (M, 2, 2), r[:, 2:] (M, 2), the Cholesky factors
+    l00, l10, l11 of the augmented V^-1 at ``lam``, g = V^-1 e_B, mi, mj;
+    all zero on inactive matches. ``fast`` (the Lowe objective) projects
+    b = t and has no V: its l and g streams are zeros."""
+    if cam_active.shape != (n_cams,):
+        raise ValueError(f"cam_active has shape {tuple(cam_active.shape)}, "
+                         f"expected ({n_cams},)")
+    *_, floats = _streams(cams, data, active_m, lam,
+                          _focal_last(cams, cam_active), fast)
+    return tuple(t.contiguous() for t in floats) + (data.mi, data.mj)
+
+
+def _system(sums, aug, lam, cam_active, fast: bool):
+    """The camera system (S, rhs) from assemble_streams' (U, +J^T r, YW,
+    yeb): S = U* - YW, rhs = -J^T r - yeb (Lowe: S = U*, rhs = -J^T r),
+    inactive cameras masked."""
+    U, eA, YW, yeb = sums
+    U_aug = _augment(U, lam, aug)
+    S, rhs = (U_aug, -eA) if fast else (U_aug - YW, -eA - yeb)
+    return _mask_inactive(S, rhs, cam_active)
+
+
+def _back_substitute(Ai, Aj, B, eB, Vinv, da, data: BAData):
+    """db = V^-1 (e_B - W^T da) without the dense W (M, 6N, 2): W_m has
+    non-zero rows only at the blocks of mi and mj, W_m = J_m^T B23[m],
+    so W_m^T da takes the two 6-row blocks Ai23[m]^T B23[m] and
+    Aj23[m]^T B23[m] and two gathers, da[mi] and da[mj] (an id outside
+    the cameras adds nothing)."""
+    N = da.shape[0] // 6
+    d6 = da.reshape(N, 6)
+
+    def block(A, ids):   # (M, 6, 2) block of W_m times da at ``ids``
+        g = d6.index_select(0, torch.clamp(ids, 0, N - 1))
+        g = torch.where(((ids >= 0) & (ids < N))[:, None], g,
+                        torch.zeros_like(g))
+        W = (A[:, 0, :, None] * B[:, 2, None, :]
+             + A[:, 1, :, None] * B[:, 3, None, :])
+        return W * g[:, :, None]
+    wtd = torch.cat([block(Ai, data.mi), block(Aj, data.mj)], 1).sum(1)
+    return (Vinv * (eB - wtd)[:, None, :]).sum(2)
+
+
 class LMResult(NamedTuple):
     cams: CamState
     error: torch.Tensor
     lam: torch.Tensor
-    n_accepted: int
-    n_iter: int
+    n_accepted: torch.Tensor   # () int64
+    n_iter: torch.Tensor       # () int64, trials run (accepted + rejected)
+
+
+class LMState(NamedTuple):
+    """The carry of the LM loop, all on the device."""
+    cams: CamState
+    err: torch.Tensor       # () accepted error
+    lam: torch.Tensor       # () float32
+    it: torch.Tensor        # () int64, trials run
+    strikes: torch.Tensor   # () int64, consecutive rejections
+    n_acc: torch.Tensor     # () int64, accepted steps
+
+
+class LMProblem(NamedTuple):
+    """What one LM run holds fixed, as device tensors."""
+    data: BAData
+    mi: torch.Tensor          # (M,) int32 camera ids for the kernel
+    mj: torch.Tensor
+    cam_active: torch.Tensor  # (N,) bool
+    active_m: torch.Tensor    # (M,) bool
+    vaug_idx: torch.Tensor    # () int64, camera of the V-augment focal
+    max_iter: torch.Tensor    # () int64
+    ws: Optional[ba_kernel.Workspace]   # kernel scratch, on the card
+
+
+# trials between two host reads of the termination flag: an LM run takes
+# 46 trials on average on the measured stitches (506 in 11 runs), so a
+# read every 8 wastes 3.5 no-op trials a run against ~6 reads, where a
+# read every trial would stall the card 46 times
+READ_EVERY = 8
+
+
+def _active_matches(data: BAData, cam_active):
+    # ids beyond a cropped camera table clamp, like a JAX gather
+    N = cam_active.shape[0]
+    return (data.m_valid & cam_active[torch.clamp(data.mi, max=N - 1)]
+            & cam_active[torch.clamp(data.mj, max=N - 1)])
+
+
+def lm_problem(data: BAData, cam_active, vaug_idx=None, max_iter: int = 50,
+               ws=None) -> LMProblem:
+    """The fixed part of an LM run. ``vaug_idx`` (int or () tensor): the
+    camera whose focal scales the V augment; by default the last active
+    one (the reference's quirk)."""
+    dev = cam_active.device
+    if vaug_idx is None:
+        idx = torch.arange(cam_active.shape[0], device=dev)
+        vaug_idx = torch.where(cam_active, idx, torch.zeros_like(idx)).max()
+    elif not torch.is_tensor(vaug_idx):
+        vaug_idx = torch.full((), int(vaug_idx), dtype=torch.int64,
+                              device=dev)
+    return LMProblem(
+        data=data, mi=data.mi.to(torch.int32), mj=data.mj.to(torch.int32),
+        cam_active=cam_active, active_m=_active_matches(data, cam_active),
+        vaug_idx=vaug_idx.reshape(()).to(torch.int64),
+        max_iter=torch.full((), max_iter, dtype=torch.int64, device=dev),
+        ws=ws)
+
+
+def lm_init(cams: CamState, pb: LMProblem, lambda0, fast: bool) -> LMState:
+    dev = cams.focal.device
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    return LMState(
+        cams=cams, err=total_error(cams, pb.data, pb.active_m, fast),
+        lam=torch.full((), float(lambda0), dtype=torch.float32, device=dev),
+        it=z, strikes=z.clone(), n_acc=z.clone())
+
+
+def _live(st: LMState, max_iter):
+    return (st.it < max_iter) & (st.strikes <= 5)
+
+
+def lm_trial(st: LMState, pb: LMProblem, fast: bool) -> LMState:
+    """One LM trial as a function of tensors (the JAX package's while_loop
+    body): the chain rule, the camera system from assemble_streams, the
+    preconditioned solve, back-substitution, the trial error, and the
+    accept test applied with torch.where alone. A trial after the run has
+    ended (``it`` at max_iter, or 6 rejections in a row) changes nothing,
+    so the result does not depend on how often the host reads the
+    termination flag. No host sync on any device."""
+    cams = st.cams
+    n = cams.focal.shape[0]
+    focal_last = cams.focal.index_select(0, pb.vaug_idx.reshape(1))[0]
+    r, Ai, Aj, B, Vinv, eB, floats = _streams(
+        cams, pb.data, pb.active_m, st.lam, focal_last, fast)
+    sums = ba_kernel.assemble_streams(*floats, pb.mi, pb.mj, n,
+                                      with_schur=not fast, ws=pb.ws)
+    S, rhs = _system(sums, _aug_scales(cams.focal), st.lam, pb.cam_active,
+                     fast)
+    da = _solve_preconditioned(S, rhs)
+    db = None if fast else _back_substitute(Ai, Aj, B, eB, Vinv, da,
+                                            pb.data)
+    trial = _apply_delta(cams, da, db, pb.cam_active, pb.active_m)
+    err_new = total_error(trial, pb.data, pb.active_m, fast)
+    live = _live(st, pb.max_iter)
+    ok = live & (err_new < st.err) & torch.isfinite(err_new)
+    return LMState(
+        cams=CamState(*(torch.where(ok, a, b) for a, b in zip(trial, cams))),
+        err=torch.where(ok, err_new, st.err),
+        lam=torch.where(live, torch.where(ok, st.lam * 0.1, st.lam * 10.0),
+                        st.lam),
+        it=st.it + live.to(torch.int64),
+        strikes=torch.where(live, torch.where(ok, torch.zeros_like(
+            st.strikes), st.strikes + 1), st.strikes),
+        n_acc=st.n_acc + ok.to(torch.int64))
+
+
+@contextlib.contextmanager
+def _device_trials(on_card: bool):
+    """Around trials on the card: any host sync raises
+    (torch.cuda.set_sync_debug_mode("error")), and the solve takes
+    cuSOLVER, whose getrf / getrs run on the device and can be captured
+    (a small getrf may otherwise go to MAGMA, which works on the host)."""
+    if not on_card:
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    lib = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        torch.backends.cuda.preferred_linalg_library(lib)
+
+
+def _result(st: LMState) -> LMResult:
+    return LMResult(cams=st.cams, error=st.err, lam=st.lam,
+                    n_accepted=st.n_acc, n_iter=st.it)
+
+
+def lm_run_eager(cams: CamState, data: BAData, cam_active, lambda0,
+                 fast: bool = False, max_iter: int = 50, vaug_idx=None,
+                 read_every: int = READ_EVERY, ws=None):
+    """The LM run as eager trials, reading the termination flag once every
+    ``read_every`` trials. Returns (LMResult, trials executed, the no-op
+    ones after the end included, host reads)."""
+    pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws)
+    st = lm_init(cams, pb, lambda0, fast)
+    on_card = cams.focal.device.type == "cuda"
+    reads = 0
+    while True:
+        with _device_trials(on_card):
+            for _ in range(read_every):
+                st = lm_trial(st, pb, fast)
+        reads += 1
+        if not bool(_live(st, pb.max_iter)):
+            return _result(st), reads * read_every, reads
 
 
 def lm_run_impl(cams: CamState, data: BAData, cam_active: torch.Tensor,
                 lambda0, fast: bool = False, max_iter: int = 50,
-                vaug_idx: Optional[int] = None) -> LMResult:
-    """Full LM optimization over the active subproblem, as a host loop
-    with one sync per trial (the accept test). ``fast`` selects the
-    Lowe objective."""
-    N = cams.focal.shape[0]
-    # ids beyond a cropped camera table clamp, like a JAX gather
-    active_m = (data.m_valid & cam_active[torch.clamp(data.mi, max=N - 1)]
-                & cam_active[torch.clamp(data.mj, max=N - 1)])
-    cur = cams
-    err = total_error(cams, data, active_m, fast)
-    lam = torch.as_tensor(lambda0, dtype=torch.float32,
-                          device=cams.focal.device)
-    it = strikes = n_acc = 0
-    while it < max_iter and strikes <= 5:
-        cache = _assemble_cache(cur, data, active_m, cam_active, N,
-                                vaug_idx=vaug_idx, fast=fast)
-        S, rhs, Vinv = _schur_solve_system(cache, active_m, lam, cam_active,
-                                           fast)
-        da = _solve_preconditioned(S, rhs)
-        db = None
-        if not fast:
-            wtd = (cache.W * da[None, :, None]).sum(1)
-            db = (Vinv * (cache.eB - wtd)[:, None, :]).sum(2)
-        trial = _apply_delta(cur, da, db, cam_active, active_m)
-        err_new = total_error(trial, data, active_m, fast)
-        if bool((err_new < err) & torch.isfinite(err_new)):
-            cur, err = trial, err_new
-            lam = lam * 0.1
-            strikes = 0
-            n_acc += 1
-        else:
-            lam = lam * 10.0
-            strikes += 1
-        it += 1
-    return LMResult(cams=cur, error=err, lam=lam, n_accepted=n_acc, n_iter=it)
+                vaug_idx=None) -> LMResult:
+    """Full LM optimization over the active subproblem (eager trials, a
+    host read every READ_EVERY of them). ``fast`` selects the Lowe
+    objective."""
+    return lm_run_eager(cams, data, cam_active, lambda0, fast=fast,
+                        max_iter=max_iter, vaug_idx=vaug_idx)[0]
 
 
 def lm_run(cams: CamState, data: BAData, cam_active: torch.Tensor,
@@ -363,3 +570,107 @@ def lm_run(cams: CamState, data: BAData, cam_active: torch.Tensor,
     """Full LM optimization over the active subproblem."""
     return lm_run_impl(cams, data, cam_active, lambda0, fast=fast,
                        max_iter=max_iter)
+
+
+class LMProgram:
+    """LM runs of one capacity bucket (``data`` cropped to its matches,
+    ``n_cams`` camera slots, one objective) on the card, with one trial
+    captured as a CUDA graph and replayed ``read_every`` times between
+    host reads of the termination flag.
+
+    Every value that changes between runs lives in a static device buffer
+    written before the run (cameras, b, the active cameras and matches,
+    lambda, the V-augment camera, the counters), so one graph serves every
+    run of the bucket. The first run's first trial runs eagerly on a side
+    stream (the warm-up that capture needs), then the trial is captured
+    with host syncs raising. Call ``close`` to release the graph and its
+    memory pool."""
+
+    def __init__(self, data: BAData, n_cams: int, fast: bool,
+                 max_iter: int = 50, read_every: int = READ_EVERY):
+        dev = data.mi.device
+        if dev.type != "cuda":
+            raise ValueError(f"LMProgram runs on a CUDA device, not {dev}")
+        M = data.mi.shape[0]
+        self.fast, self.read_every = fast, read_every
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.pb = lm_problem(
+            data, torch.zeros(n_cams, dtype=torch.bool, device=dev),
+            torch.zeros((), **i64), max_iter,
+            ba_kernel.workspace(M, n_cams, dev))
+        f = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+        self.st = LMState(
+            cams=CamState(f(n_cams), f(n_cams, 2), f(n_cams, 3), f(M, 2)),
+            err=f(), lam=f(), it=torch.zeros((), **i64),
+            strikes=torch.zeros((), **i64), n_acc=torch.zeros((), **i64))
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        self.graph = None
+        self.capture_s = 0.0          # host seconds spent capturing
+        self.launches_per_trial = 0   # kernel-3 launches in one trial
+
+    def _tensors(self, st: LMState):
+        return (*st.cams, st.err, st.lam, st.it, st.strikes, st.n_acc)
+
+    def _store(self, st: LMState):
+        for dst, src in zip(self._tensors(self.st), self._tensors(st)):
+            dst.copy_(src)
+        self.live.copy_(_live(st, self.pb.max_iter))
+
+    def _load(self, cams: CamState, cam_active, lambda0, vaug_idx: int):
+        pb, st = self.pb, self.st
+        for dst, src in zip(st.cams, cams):
+            dst.copy_(src)
+        pb.cam_active.copy_(cam_active)
+        pb.active_m.copy_(_active_matches(pb.data, pb.cam_active))
+        pb.vaug_idx.fill_(int(vaug_idx))
+        st.err.copy_(total_error(st.cams, pb.data, pb.active_m, self.fast))
+        st.lam.fill_(float(lambda0))
+        for t in (st.it, st.strikes, st.n_acc):
+            t.zero_()
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), _device_trials(True):
+            self._store(lm_trial(self.st, self.pb, self.fast))
+        torch.cuda.current_stream().wait_stream(side)
+        before = ba_kernel.assemble_streams.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with _device_trials(True):
+                self._store(lm_trial(self.st, self.pb, self.fast))
+        # capture records the launches, it does not run them: the replays
+        # count them
+        self.launches_per_trial = ba_kernel.assemble_streams.launches - before
+        ba_kernel.assemble_streams.launches = before
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, cams: CamState, cam_active, lambda0, vaug_idx: int):
+        """One LM run from ``cams``. Returns (LMResult, trials executed, the
+        warm-up and the no-op ones after the end included, host reads)."""
+        self._load(cams, cam_active, lambda0, vaug_idx)
+        executed = reads = 0
+        if self.graph is None:
+            self._capture()
+            executed += 1
+        while True:
+            with _device_trials(True):
+                for _ in range(self.read_every):
+                    self.graph.replay()
+            ba_kernel.assemble_streams.launches += \
+                self.read_every * self.launches_per_trial
+            executed += self.read_every
+            reads += 1
+            if not bool(self.live):
+                break
+        st = LMState(*(t.clone() if torch.is_tensor(t) else
+                       CamState(*(c.clone() for c in t)) for t in self.st))
+        return _result(st), executed, reads
+
+    def close(self):
+        """Release the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None

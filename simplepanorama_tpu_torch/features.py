@@ -4,16 +4,17 @@ return center-origin keypoints + rootSIFT descriptors.
 Port of simplepanorama_tpu/features.py (img::images::calculate_keypoints
 of the reference). Every image is edge-padded to the common max shape
 rounded to a multiple of 8 and goes through ops.sift.extract_sift_batch in
-chunks of at most ``_SIFT_CHUNK`` images (results are per image, so the
-chunking changes nothing but peak memory). The images come as a list, or
-as an io.PendingLoad still decoding (the streaming path of run_pipeline).
-Not ported: the JAX package's chunk self-tuning on compile-time OOM and
-its multi-process extraction.
+chunks sized to a memory budget (``_sift_chunk_size``; results are per
+image, so the chunking changes nothing but peak memory). The images come
+as a list, or as an io.PendingLoad still decoding (the streaming path of
+run_pipeline). Not ported: the JAX package's chunk self-tuning on
+compile-time OOM and its multi-process extraction.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -23,9 +24,16 @@ from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.io import PendingLoad
 from simplepanorama_tpu_torch.ops.sift import extract_sift_batch
 
-# images per SIFT launch: bounds the dense refinement maps (~40 planes of
-# the x2-upscaled octave-0 stack per image)
-_SIFT_CHUNK = 4
+
+
+def _sift_chunk_size(nb: int, Hp: int, Wp: int, cfg: Config) -> int:
+    """Images per SIFT launch for ``nb`` images padded to (Hp, Wp): the
+    JAX package's memory model, Hp * Wp * (nOctaveLayers + 3) * 550 bytes
+    per image (the x2-upscaled pyramid and its refinement maps), against
+    SPT_SIFT_MEM_BUDGET bytes (default 9 GB), at most 8 and at least 1."""
+    per_img = Hp * Wp * (cfg.nOctaveLayers + 3) * 550
+    budget = int(os.environ.get("SPT_SIFT_MEM_BUDGET", 9_000_000_000))
+    return max(1, min(nb, 8, budget // max(1, per_img)))
 
 
 @dataclasses.dataclass
@@ -117,7 +125,7 @@ def _pad_edge(im: np.ndarray, Hp: int, Wp: int) -> np.ndarray:
 def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
                   device):
     """Every image padded and uploaded at once, SIFT in chunks of
-    ``_SIFT_CHUNK``. Returns (per-chunk SIFT outputs, hw, batch)."""
+    ``_sift_chunk_size``. Returns (per-chunk SIFT outputs, hw, batch)."""
     n = len(images)
     Hp, Wp = _pad8([im.shape[:2] for im in images])
     batch = np.zeros((n, Hp, Wp, 3), np.uint8)
@@ -126,12 +134,12 @@ def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
     batch_d = torch.as_tensor(batch, device=device)
     hw_d = torch.as_tensor([im.shape[:2] for im in images], dtype=torch.int64,
                            device=device)
+    G = _sift_chunk_size(n, Hp, Wp, cfg)
     outs = []
-    for s in range(0, n, _SIFT_CHUNK):
+    for s in range(0, n, G):
         if cancelled is not None and cancelled():
             raise RuntimeError("Process canceled")
-        outs.append(_sift(batch_d[s:s + _SIFT_CHUNK], hw_d[s:s + _SIFT_CHUNK],
-                          cfg))
+        outs.append(_sift(batch_d[s:s + G], hw_d[s:s + G], cfg))
     return outs, hw_d, batch_d
 
 
@@ -140,13 +148,14 @@ def _extract_stream(pending: PendingLoad, cfg: Config, cancelled, device):
     chunk by chunk in image order, wait for the chunk's decodes, pad,
     upload into its rows of the device batch and queue its SIFT, so the
     decode pool works on later images while the device works on earlier
-    ones. With 6 or more images a chunk holds at most (n + 2) // 3 of
-    them, so the first SIFT starts after a third of the decodes. A decode
+    ones. A chunk holds ``_sift_chunk_size`` images, and with 6 or more
+    images at most (n + 2) // 3, so the first SIFT starts after a third of
+    the decodes. A decode
     that failed raises here. Returns (per-chunk SIFT outputs, hw,
     batch)."""
     n = len(pending)
     Hp, Wp = _pad8(pending.dims)
-    G = min(_SIFT_CHUNK, n)
+    G = _sift_chunk_size(n, Hp, Wp, cfg)
     if n >= 6:
         G = min(G, (n + 2) // 3)
     batch_d = torch.empty((n, Hp, Wp, 3), dtype=torch.uint8, device=device)

@@ -18,14 +18,16 @@ the Lowe objective's system) YW and yeb are zeros.
 ``_stream_block`` over the whole array (camera masks, dense (M, 6N) rows,
 four products). ``assemble_streams`` dispatches on where its tensors
 live: CPU tensors take the plain version; CUDA tensors launch
-``csrc/ba_assemble.cu`` (built with nvcc at first use) or raise. Like the
-JAX package, the port's ``ba`` does not call it; ``streams_from_problem``
-rebuilds its inputs from a BA state.
+``csrc/ba_assemble.cu`` (built with nvcc at first use) or raise. Unlike
+the JAX package, which left its kernel unwired, the port's ``ba`` calls it
+once per LM trial on every device (``ba.streams_from_problem`` builds its
+inputs from a BA state).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,7 +38,12 @@ _FLOATS = ("ai", "aj", "bp", "r2", "l00", "l10", "l11", "g0", "g1")
 def assemble_streams_ref(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
                          n_cams: int, with_schur: bool = True):
     """Plain PyTorch version: one whole-array block of _stream_block.
-    Returns (U (6N, 6N), eA (6N,), YW (6N, 6N), yeb (6N,))."""
+    Returns (U (6N, 6N), eA (6N,), YW (6N, 6N), yeb (6N,)). The per-match
+    terms are float32 products, as the kernels form them; their sums over
+    the matches run in float64 and are rounded once, so the result does
+    not depend on a summation order (the gradient e_A cancels strongly
+    near a minimum, where a float32 sum in one order or another moves an
+    LM step by ~1e-5)."""
     sN = 6 * n_cams
     cam = torch.arange(sN, device=ai.device) // 6
     # an id outside [0, N) matches no column: the match adds nothing there
@@ -46,8 +53,12 @@ def assemble_streams_ref(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
         + mj_mask * aj[:, 0, :].repeat(1, n_cams)
     jr1 = mi_mask * ai[:, 1, :].repeat(1, n_cams) \
         + mj_mask * aj[:, 1, :].repeat(1, n_cams)
-    U = jr0.T @ jr0 + jr1.T @ jr1
-    eA = jr0.T @ r2[:, 0] + jr1.T @ r2[:, 1]
+
+    def sums(a0, b0, a1, b1):   # a0^T b0 + a1^T b1 over the matches
+        d = lambda x: x.to(torch.float64)
+        return (d(a0).T @ d(b0) + d(a1).T @ d(b1)).to(torch.float32)
+    U = sums(jr0, jr0, jr1, jr1)
+    eA = sums(jr0, r2[:, 0], jr1, r2[:, 1])
     if not with_schur:
         return U, eA, torch.zeros_like(U), torch.zeros_like(eA)
     col = lambda x: x.reshape(-1, 1)
@@ -55,9 +66,7 @@ def assemble_streams_ref(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
     w1 = jr0 * col(bp[:, 0, 1]) + jr1 * col(bp[:, 1, 1])
     z0 = w0 * col(l00) + w1 * col(l10)
     z1 = w1 * col(l11)
-    YW = z0.T @ z0 + z1.T @ z1
-    yeb = w0.T @ g0 + w1.T @ g1
-    return U, eA, YW, yeb
+    return U, eA, sums(z0, z0, z1, z1), sums(w0, g0, w1, g1)
 
 
 _LIB = {}
@@ -70,16 +79,55 @@ def build(rebuild: bool = False) -> float:
     lib, seconds = load_library("spt_ba_assemble", ["ba_assemble.cu"],
                                 rebuild=rebuild)
     if not _LIB:
-        lib.spt_ba_assemble_scratch.argtypes = [
+        lib.spt_ba_assemble_init.argtypes = []
+        lib.spt_ba_assemble_init.restype = ctypes.c_int
+        lib.spt_ba_assemble_plan.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-        lib.spt_ba_assemble_scratch.restype = ctypes.c_int
-        lib.spt_ba_assemble.argtypes = [ctypes.c_void_p] * 16 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.spt_ba_assemble_plan.restype = ctypes.c_int
+        lib.spt_ba_assemble.argtypes = [ctypes.c_void_p] * 17 + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.spt_ba_assemble.restype = ctypes.c_int
         lib.spt_error_string.argtypes = [ctypes.c_int]
         lib.spt_error_string.restype = ctypes.c_char_p
+        _raise_on(lib, lib.spt_ba_assemble_init(), "init")
         _LIB["lib"] = lib
     return seconds
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"assemble_streams kernel ({what}): "
+                           + lib.spt_error_string(rc).decode())
+
+
+class Workspace(NamedTuple):
+    """The kernel's launch plan and scratch for one (M, n_cams) on one
+    card: made once per capacity bucket, then passed to every call."""
+    M: int
+    n_cams: int
+    ctas: int
+    per_cta: int
+    off_in_smem: int
+    smem: int
+    part: torch.Tensor    # float32 partial sums, one slot per CTA and block
+    flags: torch.Tensor   # uint8 touched flags, one per CTA and block
+
+
+def workspace(M: int, n_cams: int, device) -> Workspace:
+    """Plan and scratch of assemble_streams for ``M`` matches and
+    ``n_cams`` cameras on the CUDA ``device`` (builds the kernel)."""
+    build()
+    lib = _LIB["lib"]
+    dev = torch.device(device)
+    plan = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(dev):
+        _raise_on(lib, lib.spt_ba_assemble_plan(M, n_cams, plan),
+                  f"plan, M={M}, n_cams={n_cams}")
+    return Workspace(
+        M=M, n_cams=n_cams, ctas=plan[0], per_cta=plan[1],
+        off_in_smem=plan[2], smem=plan[3],
+        part=torch.empty(plan[4], dtype=torch.float32, device=dev),
+        flags=torch.empty(plan[5], dtype=torch.uint8, device=dev))
 
 
 def _check(args, mi, mj, n_cams: int):
@@ -121,72 +169,53 @@ def _check(args, mi, mj, n_cams: int):
 
 
 def assemble_streams(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
-                     n_cams: int, with_schur: bool = True):
+                     n_cams: int, with_schur: bool = True,
+                     ws: Optional[Workspace] = None):
     """Fused accumulation over the matches (port of assemble_streams).
     Float inputs float32, ``mi``/``mj`` int32 or int64, all on one device;
     M a multiple of min(512, M), as the JAX kernel requires. Returns
     (U (6N, 6N), eA (6N,), YW (6N, 6N), yeb (6N,)) float32. CPU tensors
     run assemble_streams_ref; CUDA tensors launch csrc/ba_assemble.cu and
-    count the launch in ``assemble_streams.launches``."""
+    count the launch in ``assemble_streams.launches``. On the card,
+    ``ws`` (from ``workspace``) saves the plan and the scratch of each
+    call, and int32 ids save their copy: a caller that launches many
+    times at one shape passes both."""
     floats = (ai, aj, bp, r2, l00, l10, l11, g0, g1)
     M = _check(floats, mi, mj, n_cams)
     if ai.device.type == "cpu":
         return assemble_streams_ref(*floats, mi, mj, n_cams,
                                     with_schur=with_schur)
-    build()
+    if ws is None:
+        ws = workspace(M, n_cams, ai.device)
+    elif (ws.M, ws.n_cams) != (M, n_cams) or ws.part.device != ai.device:
+        raise ValueError(f"workspace for M={ws.M}, n_cams={ws.n_cams} on "
+                         f"{ws.part.device}, called with M={M}, "
+                         f"n_cams={n_cams} on {ai.device}")
     lib = _LIB["lib"]
     floats = [t.contiguous() for t in floats]
+    # float4 loads of ai, aj and bp, float2 of r2
+    for name, t, align in zip(("ai", "aj", "bp", "r2"), floats,
+                              (16, 16, 16, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} is not {align}-byte aligned")
     ids = [t.to(torch.int32).contiguous() for t in (mi, mj)]
-    n_scratch = ctypes.c_longlong()
-    rc = lib.spt_ba_assemble_scratch(M, n_cams, ctypes.byref(n_scratch))
-    if rc != 0:
-        raise RuntimeError("assemble_streams kernel: "
-                           + lib.spt_error_string(rc).decode()
-                           + f" (M={M}, n_cams={n_cams})")
     dev = ai.device
     sN = 6 * n_cams
     f32 = dict(dtype=torch.float32, device=dev)
     U, YW = torch.empty((sN, sN), **f32), torch.empty((sN, sN), **f32)
     eA, yeb = torch.empty(sN, **f32), torch.empty(sN, **f32)
-    part = torch.empty(n_scratch.value, **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.spt_ba_assemble(
             *(t.data_ptr() for t in floats), *(t.data_ptr() for t in ids),
             U.data_ptr(), eA.data_ptr(), YW.data_ptr(), yeb.data_ptr(),
-            part.data_ptr(), M, n_cams, int(bool(with_schur)), stream)
-    if rc != 0:
-        raise RuntimeError("assemble_streams kernel failed: "
-                           + lib.spt_error_string(rc).decode())
+            ws.part.data_ptr(), ws.flags.data_ptr(), M, n_cams,
+            int(bool(with_schur)), ws.ctas, ws.per_cta, ws.off_in_smem,
+            ws.smem, stream)
+    _raise_on(lib, rc, "launch")
     assemble_streams.launches += 1
     return U, eA, YW, yeb
 
 
 assemble_streams.launches = 0
 
-
-def streams_from_problem(cams, data, active_m, lam, cam_active, n_cams: int,
-                         fast: bool):
-    """The 11 input streams of assemble_streams for one BA state of
-    ``n_cams`` camera slots (``cam_active`` marks the live ones), as
-    tests/test_ba_kernel.py rebuilds them from ba._assemble: Ai, Aj
-    (M, 2, 6), B23 (M, 2, 2), r[:, 2:] (M, 2), the Cholesky factors
-    l00, l10, l11 of the augmented V^-1 at ``lam``, g = V^-1 e_B, mi, mj;
-    all zero on inactive matches. ``fast`` (the Lowe objective) projects
-    b = t and has no V: its l and g streams are zeros."""
-    from simplepanorama_tpu_torch import ba
-    if cam_active.shape != (n_cams,):
-        raise ValueError(f"cam_active has shape {tuple(cam_active.shape)}, "
-                         f"expected ({n_cams},)")
-    r, Ai, Aj, B = ba._jacobian_streams(cams, data, active_m, fast)
-    M = r.shape[0]
-    if fast:
-        l00 = l10 = l11 = g0 = g1 = r.new_zeros(M)
-    else:
-        V, eB = ba._v_and_eb(B, r)
-        Vinv = ba._v_inverse(V, ba._focal_last(cams, cam_active), lam,
-                             active_m)
-        l00, l10, l11, g0, g1 = ba._cholesky_streams(Vinv, eB)
-    c = lambda t: t.contiguous()
-    return (c(Ai), c(Aj), c(B[:, 2:, :]), c(r[:, 2:]), c(l00), c(l10),
-            c(l11), c(g0), c(g1), data.mi, data.mj)

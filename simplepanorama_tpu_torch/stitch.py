@@ -12,13 +12,17 @@ Cameras are renumbered into addition order and matches sorted by
 activation step, so the live subproblem after addition l is a prefix of
 the padded tables. The schedule is split into equal-work chunks, each run
 at a cropped capacity bucket (matches rounded to 2048, cameras to 8) —
-the JAX package's bucket plan, here as a host loop over additions.
+the JAX package's bucket plan. On the card each bucket's LM trial is one
+CUDA graph (ba.LMProgram), replayed with a host read of the termination
+flag every few trials: the counterpart of the JAX package's one compiled
+program per chunk. The additions themselves (the rotation init's SVD)
+run eagerly, once each.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.geometry import rotation as rotn
 from simplepanorama_tpu_torch.geometry.graph import (
     Component, order_nodes_by_connection)
+from simplepanorama_tpu_torch.ops import ba_kernel
 
 
 @dataclasses.dataclass
@@ -162,15 +167,69 @@ def _shift_centers(K: np.ndarray, sizes, nodes) -> np.ndarray:
     return Ks
 
 
+class LMCounts(NamedTuple):
+    """What one chunk of the schedule ran."""
+    runs: int                 # LM runs (one per addition)
+    trials: torch.Tensor      # () trials of those runs, accepted or not
+    accepted: torch.Tensor    # () accepted steps
+    executed: int             # trials executed: the runs' trials, the
+    #                           no-op ones after a run ended, the warm-up
+    reads: int                # host reads of the termination flag
+    graphs: int               # trials captured as CUDA graphs
+    capture_s: float          # host seconds spent capturing
+
+
+def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
+              data_c: ba.BAData, lo: int, hi: int, order_conns, H_pair,
+              vaug, lambda0: float, fast: bool,
+              program: Optional[ba.LMProgram] = None, ws=None):
+    """Additions [lo, hi) of the schedule at one capacity bucket: each
+    activates its camera (eagerly, with the SVD of its rotation init),
+    then runs LM over the active set, through ``program`` (the bucket's
+    CUDA graph) or as eager trials (with the kernel scratch ``ws`` on the
+    card). ``active_c`` is updated in place. Returns (cams, LMCounts);
+    the counts stay on the device."""
+    dev = cams_c.focal.device
+    trials = torch.zeros((), dtype=torch.int64, device=dev)
+    accepted = torch.zeros((), dtype=torch.int64, device=dev)
+    executed = reads = graphs = 0
+    capture_s = 0.0
+    for l in range(lo, hi):
+        cams_c = _add_camera(cams_c, l, order_conns[l], H_pair[l])
+        active_c[l] = True
+        if program is not None:
+            fresh = program.graph is None
+            res, n, r = program.run(cams_c, active_c, lambda0, int(vaug[l]))
+            if fresh:
+                graphs += 1
+                capture_s += program.capture_s
+        else:
+            res, n, r = ba.lm_run_eager(cams_c, data_c, active_c, lambda0,
+                                        fast=fast, vaug_idx=int(vaug[l]),
+                                        ws=ws)
+        cams_c = res.cams
+        trials = trials + res.n_iter
+        accepted = accepted + res.n_accepted
+        executed += n
+        reads += r
+    return cams_c, LMCounts(runs=hi - lo, trials=trials, accepted=accepted,
+                            executed=executed, reads=reads, graphs=graphs,
+                            capture_s=capture_s)
+
+
 def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                             sizes: Sequence[Tuple[int, int]], focal: float,
                             cfg: Config,
                             progress: Optional[Callable[[float], None]] = None,
                             cancelled: Optional[Callable[[], bool]] = None,
-                            device="cpu") -> StitchResult:
+                            device="cpu", fused: bool = True) -> StitchResult:
     """Run the incremental BA over one connected component; ``sizes`` are
     (h, w) of the global image list, ``focal`` the scene estimate.
-    ``cfg.fast`` selects the Lowe objective."""
+    ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
+    each chunk of the schedule as its bucket's CUDA graph, replayed, on
+    the card (ba.LMProgram; the graphs live for this call);
+    ``fused=False``, and every run on the CPU, runs the same trial
+    eagerly. Progress and cancellation are per chunk."""
     nodes = comp.nodes
     n = len(nodes)
     order = order_nodes_by_connection(comp.adj + comp.adj.T)
@@ -218,31 +277,42 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
         b=data.t.clone())
     active = torch.zeros(n_pad, dtype=torch.bool, device=device)
     active[0] = True
-
-    for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap):
-        sl = lambda x: x[:m_cap]
-        data_c = ba.BAData(mi=sl(data.mi), mj=sl(data.mj), q=sl(data.q),
-                           t=sl(data.t), m_valid=sl(data.m_valid),
-                           pi=data.pi, pj=data.pj, mp=sl(data.mp))
-        cams_c = ba.CamState(cams.focal[:n_cap], cams.ppal[:n_cap],
-                             cams.rotvec[:n_cap], sl(cams.b))
-        active_c = active[:n_cap].clone()
-        for l in range(lo, hi):
-            cams_c = _add_camera(cams_c, l, order_conns[l], H_pair[l])
-            active_c[l] = True
-            cams_c = ba.lm_run_impl(cams_c, data_c, active_c,
-                                    float(cfg.lambda_), fast=bool(cfg.fast),
-                                    vaug_idx=int(vaug[l])).cams
-        cams = ba.CamState(
-            focal=torch.cat([cams_c.focal, cams.focal[n_cap:]]),
-            ppal=torch.cat([cams_c.ppal, cams.ppal[n_cap:]]),
-            rotvec=torch.cat([cams_c.rotvec, cams.rotvec[n_cap:]]),
-            b=torch.cat([cams_c.b, cams.b[m_cap:]]))
-        active[:n_cap] = active_c
-        if progress is not None:
-            progress((hi - lo) / (L - 1))
-        if cancelled is not None and cancelled():
-            raise RuntimeError("Process canceled")
+    on_card = torch.device(device).type == "cuda"
+    programs = {}   # (n_cap, m_cap) -> ba.LMProgram, for this call only
+    try:
+        for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap):
+            sl = lambda x: x[:m_cap]
+            data_c = ba.BAData(mi=sl(data.mi), mj=sl(data.mj), q=sl(data.q),
+                               t=sl(data.t), m_valid=sl(data.m_valid),
+                               pi=data.pi, pj=data.pj, mp=sl(data.mp))
+            cams_c = ba.CamState(cams.focal[:n_cap], cams.ppal[:n_cap],
+                                 cams.rotvec[:n_cap], sl(cams.b))
+            active_c = active[:n_cap].clone()
+            program = ws = None
+            if on_card and fused:
+                program = programs.get((n_cap, m_cap))
+                if program is None:
+                    program = programs[n_cap, m_cap] = ba.LMProgram(
+                        data_c, n_cap, bool(cfg.fast))
+            elif on_card:
+                ws = ba_kernel.workspace(m_cap, n_cap, device)
+            cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
+                                  order_conns, H_pair, vaug,
+                                  float(cfg.lambda_), bool(cfg.fast),
+                                  program, ws)
+            cams = ba.CamState(
+                focal=torch.cat([cams_c.focal, cams.focal[n_cap:]]),
+                ppal=torch.cat([cams_c.ppal, cams.ppal[n_cap:]]),
+                rotvec=torch.cat([cams_c.rotvec, cams.rotvec[n_cap:]]),
+                b=torch.cat([cams_c.b, cams.b[m_cap:]]))
+            active[:n_cap] = active_c
+            if progress is not None:
+                progress((hi - lo) / (L - 1))
+            if cancelled is not None and cancelled():
+                raise RuntimeError("Process canceled")
+    finally:
+        for program in programs.values():
+            program.close()
 
     focal_new = cams.focal.cpu().double().numpy()
     ppal_new = cams.ppal.cpu().double().numpy()

@@ -189,7 +189,7 @@ def test_streams_reproduce_ba_assembly(fast):
     cache = tba._assemble_cache(tcams, tdata, tact_m, ta, N, fast=fast)
     S_t, rhs_t, _ = tba._schur_solve_system(cache, tact_m, lam, ta, fast)
 
-    streams = tbk.streams_from_problem(tcams, tdata, tact_m, lam, ta, N,
+    streams = tba.streams_from_problem(tcams, tdata, tact_m, lam, ta, N,
                                        fast)
     U, eA, YW, yeb = tbk.assemble_streams(*streams, N, with_schur=not fast)
     U_aug = tba._augment(U, lam, cache.aug)

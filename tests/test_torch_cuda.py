@@ -300,23 +300,172 @@ def _ba_streams(M, N, seed, dev):
 
 
 @pytest.mark.parametrize("with_schur", [True, False])
-@pytest.mark.parametrize("N,M,seed", [(8, 1024, 0), (16, 384, 1),
-                                      (40, 20480, 2)])
+@pytest.mark.parametrize("N,M,seed", [
+    (8, 1024, 0), (16, 384, 1), (40, 20480, 2),
+    *[(N, M, 3 + i) for i, (N, M) in enumerate(
+        (N, M) for N in (8, 16, 40) for M in (2048, 6144, 20480))]])
 def test_ba_kernel_matches_plain_version(cuda, N, M, seed, with_schur):
     """assemble_streams (the CUDA kernel) against assemble_streams_ref on
     the same card: every output within 1e-3 * max|plain| + 1e-4 (the TPU
     kernel's test bound; the sums run in another order); one launch
-    counted per call. M = 384 is not a multiple of 512 but is one of
-    min(512, M)."""
+    counted per call; a second call with a reused workspace gives the
+    same bits (fixed-order sums, no float atomics). N = 8 and 16 camera
+    slots and M = 2,048-20,480 are the LM trial's buckets; N = 40 takes
+    the pair blocks through device memory. M = 384 is not a multiple of
+    512 but is one of min(512, M)."""
     args = _ba_streams(M, N, seed, cuda)
     before = ba_kernel.assemble_streams.launches
     got = ba_kernel.assemble_streams(*args, N, with_schur=with_schur)
     assert ba_kernel.assemble_streams.launches == before + 1
     want = ba_kernel.assemble_streams_ref(*args, N, with_schur=with_schur)
+    ws = ba_kernel.workspace(M, N, cuda)
+    again = ba_kernel.assemble_streams(*args, N, with_schur=with_schur,
+                                       ws=ws)
     torch.cuda.synchronize()
-    for name, g, w in zip(["U", "eA", "YW", "yeb"], got, want):
+    for name, g, w, g2 in zip(["U", "eA", "YW", "yeb"], got, want, again):
         assert g.shape == w.shape and g.dtype == torch.float32, name
         err = float((g - w).abs().max())
         assert err <= 1e-3 * float(w.abs().max()) + 1e-4, (name, err)
+        assert torch.equal(g, g2), name
     if not with_schur:
         assert not got[2].any() and not got[3].any()
+
+
+@pytest.fixture(scope="module")
+def slice1_ba(tmp_path_factory):
+    """The BA problem of slice 1 (12 views of 700 px, a 360-degree loop),
+    recorded from a stitch on the card: (comp, adjres, sizes, focal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from simplepanorama_tpu_torch import stitch
+    paths, _, _ = fkh360_views(12, 700,
+                               out_dir=str(tmp_path_factory.mktemp("s1")))
+    seen = {}
+    ba_stitching = stitch.bundle_adjust_stitching
+
+    def recording(comp, adjres, sizes, focal, *a, **kw):
+        seen["args"] = (comp, adjres, sizes, focal)
+        return ba_stitching(comp, adjres, sizes, focal, *a, **kw)
+    stitch.bundle_adjust_stitching = recording
+    try:
+        Panorama(paths, device="cuda").stitch(Config())
+    finally:
+        stitch.bundle_adjust_stitching = ba_stitching
+    return seen["args"]
+
+
+def _run_ba(args, fused, fast=False):
+    """bundle_adjust_stitching on the card with the chunk driver's counts
+    summed: (result, {runs, trials, accepted, executed, reads, graphs})."""
+    from simplepanorama_tpu_torch import stitch
+    counts = dict(runs=0, trials=0, accepted=0, executed=0, reads=0,
+                  graphs=0)
+    chunk = stitch._lm_chunk
+
+    def counted(*a, **kw):
+        cams, c = chunk(*a, **kw)
+        for k in counts:
+            counts[k] += int(getattr(c, k))
+        return cams, c
+    stitch._lm_chunk = counted
+    try:
+        res = stitch.bundle_adjust_stitching(*args, Config(fast=fast),
+                                             device="cuda", fused=fused)
+    finally:
+        stitch._lm_chunk = chunk
+    return res, counts
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
+                                                        fast):
+    """Slice 1's BA with fused=True captures one CUDA graph per capacity
+    bucket of its schedule, with host syncs raising
+    (torch.cuda.set_sync_debug_mode("error") around the warm-up, the
+    capture and every replay: a sync would have raised here), and
+    launches kernel 3 once per trial executed; against fused=False (the
+    same trial, eager) the same trials and accepted steps, and cameras
+    within 1e-5 relative."""
+    from simplepanorama_tpu_torch import stitch
+    comp, adjres, sizes, focal = slice1_ba
+    before = ba_kernel.assemble_streams.launches
+    res_f, c_f = _run_ba(slice1_ba, True, fast)
+    launches = ba_kernel.assemble_streams.launches - before
+    res_e, c_e = _run_ba(slice1_ba, False, fast)
+    n = len(comp.nodes)
+    data, prefix = stitch.build_ba_data(
+        comp, adjres, order=stitch.order_nodes_by_connection(
+            comp.adj + comp.adj.T))
+    buckets = {(nc, mc) for _, _, nc, mc in stitch._chunk_plan(
+        prefix, n, stitch._round_up(n, 8), data.mi.shape[0])}
+    assert c_f["graphs"] == len(buckets) and c_e["graphs"] == 0
+    assert launches == c_f["executed"]
+    assert (c_f["runs"], c_f["trials"], c_f["accepted"]) == \
+        (c_e["runs"], c_e["trials"], c_e["accepted"])
+    np.testing.assert_allclose(res_f.K, res_e.K, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(res_f.rot, res_e.rot, atol=1e-5)
+
+
+def _program(args, fast=False):
+    """An LMProgram of the last bucket of the schedule of ``args``, loaded
+    with the start of that bucket's last LM run (cameras at the focal
+    estimate, identity rotations): (program, cams, active)."""
+    from simplepanorama_tpu_torch import ba, stitch
+    comp, adjres, sizes, focal = args
+    n = len(comp.nodes)
+    order = stitch.order_nodes_by_connection(comp.adj + comp.adj.T)
+    data, prefix = stitch.build_ba_data(comp, adjres, device="cuda",
+                                        order=order)
+    lo, hi, n_cap, m_cap = stitch._chunk_plan(
+        prefix, n, stitch._round_up(n, 8), data.mi.shape[0])[-1]
+    data_c = ba.BAData(*(t if k in ("pi", "pj") else t[:m_cap]
+                         for k, t in data._asdict().items()))
+    prog = ba.LMProgram(data_c, n_cap, fast)
+    cams = ba.CamState(
+        focal=torch.full((n_cap,), focal, device="cuda"),
+        ppal=torch.zeros((n_cap, 2), device="cuda"),
+        rotvec=torch.zeros((n_cap, 3), device="cuda"), b=data_c.t.clone())
+    cams.rotvec[1:n, 1] = torch.linspace(0.5, 5.8, n - 1)
+    active = torch.arange(n_cap, device="cuda") < n
+    prog._load(cams, active, 0.05, n - 1)
+    return prog, cams, active
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_replayed_trial_equals_eager_trial(cuda, slice1_ba, fast):
+    """One replay of the captured trial against the same trial run
+    eagerly from the same state on the card (the same kernels in the
+    same order): every state tensor equal, bit for bit. The eager trial
+    runs with host syncs raising."""
+    from simplepanorama_tpu_torch import ba
+    prog, cams, active = _program(slice1_ba, fast)
+    try:
+        prog._capture()   # runs the state's first trial, then captures
+        with ba._device_trials(True):
+            want = ba.lm_trial(prog.st, prog.pb, fast)
+        prog.graph.replay()
+        torch.cuda.synchronize()
+        for w, g in zip(prog._tensors(want), prog._tensors(prog.st)):
+            assert torch.equal(w, g)
+    finally:
+        prog.close()
+
+
+def test_replays_do_not_grow_memory(cuda, slice1_ba):
+    """Peak device memory after 1 replay and after 100 more: equal (the
+    graph's allocations live in its private pool, made at capture)."""
+    prog, _, _ = _program(slice1_ba)
+    try:
+        prog._capture()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog.graph.replay()
+        torch.cuda.synchronize()
+        peak1 = torch.cuda.max_memory_allocated()
+        for _ in range(100):
+            prog.graph.replay()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() == peak1
+        assert torch.isfinite(prog.st.err)
+    finally:
+        prog.close()

@@ -37,7 +37,8 @@ def _stream(paths, cfg, **kw):
 
 def test_stream_equals_list_path(views, monkeypatch):
     """The same files through the stream (chunks of 2, as decoded) and
-    through the list path (one upload, chunks of 4): identical keypoints,
+    through the list path (one upload, one chunk of 6 under the default
+    memory budget): identical keypoints,
     descriptors and device_images, the ImageSet filled in image order,
     and one SIFT call per chunk of at most (n + 2) // 3 images.
     Tolerance: exact (measured exact; SIFT's result for an image does
