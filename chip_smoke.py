@@ -50,10 +50,24 @@ Phases, each printing one line per input:
           against the port's own assembly (ba._assemble_cache +
           _schur_solve_system), which is also timed, as computed and in
           the Jacobi scaling of the solve;
+  dist    the multi-device layer (parallel/) at world 1 over NCCL, in
+          this process: the match-sharded LM (lm_run_sharded, kernel 3
+          on the rank's matches) against ba.lm_run_eager on the BA
+          problems of slices 1 and 3, bit for bit; multi_blend_sharded on
+          slice 2's blocks; the image-split and canvas-split full-res
+          schedules against slice 2's single-device render; the
+          column-sharded min-cut on slice 1's first seam graph against
+          grid_mincut_ref and kernel 1;
+  hostcut render/graphcut.graph_cut, the per-image host loop, on slice 1's
+          blocks on the card: kernel 1 once per cut, seams against the
+          device chain's;
+  two_card with two or more cards, slice 2 in a world of 2 ranks over
+          NCCL (one process a card) against the single-card run; with
+          one card a line says it was skipped;
   ba      the BA problems of slice 1 (relaxed) and slice 3 (Lowe) again
           through stitch.bundle_adjust_stitching, fused=False (eager
           trials) and fused=True (each bucket's trial a CUDA graph) in
-          turns, three of each: walls, LM trials, host reads, graphs,
+          turns, two of each: walls, LM trials, host reads, graphs,
           kernel-3 launches, the cameras of the two, the device's busy
           share (torch.profiler), kernel 3 at each bucket;
   slice5  the little planet: the slice-3 loop through
@@ -80,7 +94,9 @@ Any failure raises: the exit code is then non-zero and no result line
 is printed. Without a CUDA card, or run alone (without the
 simplepanorama_tpu_torch package beside it), it exits with code 1 before
 any phase. It needs no network and starts no process of its own except
-nvidia-smi and nvcc.
+nvidia-smi, nvcc and, with two or more cards, the two ranks of the
+two_card phase (parallel/launch.run_world, which kills them if they
+outlive its time limit).
 """
 
 import contextlib
@@ -903,7 +919,7 @@ def _ba_phase(torch, problems, card):
     """Each recorded BA problem {name: (comp, adjres, sizes, focal, cfg)}
     through stitch.bundle_adjust_stitching on the card with fused=False
     (eager trials) and fused=True (the buckets' CUDA graphs), in turns,
-    three of each (eager, graph, graph, eager, eager, graph); one line per
+    two of each (eager, graph, graph, eager); one line per
     run, then one run of each with the device's busy share measured over
     its first chunks (torch.profiler), and
     kernel 3 at each capacity bucket of the schedule (the streams of that
@@ -922,7 +938,7 @@ def _ba_phase(torch, problems, card):
         launches = 0
         walls = {False: [], True: []}
         chunks = []
-        for fused in (False, True, True, False, False, True):
+        for fused in (False, True, True, False):
             ba_kernel.assemble_streams.launches = 0
             record = fused and not walls[True]    # the first graph run
             torch.cuda.synchronize()
@@ -1006,6 +1022,308 @@ def _ba_phase(torch, problems, card):
         out[name] = {"launches": launches,
                      "largest": results[max(results)]}
     return out
+
+
+def _perturbed(torch, cams, active, seed=0):
+    """``cams`` with the focals 3% high and the rotation vectors of the
+    active cameras but the first moved by N(0, 0.01) rad (numpy ``seed``),
+    so that an LM run from there takes many trials."""
+    rng = np.random.default_rng(seed)
+    n = int(active.sum())
+    noise = np.zeros(tuple(cams.rotvec.shape), np.float32)
+    noise[1:n] = rng.normal(0.0, 0.01, (n - 1, 3))
+    return cams._replace(focal=cams.focal * 1.03,
+                         rotvec=cams.rotvec + torch.from_numpy(noise).cuda())
+
+
+def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
+    """The multi-device layer (simplepanorama_tpu_torch/parallel/) at
+    world 1 over NCCL on cuda:0, in this process (a FileStore in ``tmp``),
+    at full width:
+      * parallel.dist_ba.lm_run_sharded against ba.lm_run_eager on each of
+        ``ba_problems`` {name: (cams, data, active, fast, lambda)} (the BA
+        problems of slices 1 and 3 as _slice3_ba_problem builds them,
+        started from _perturbed cameras, 50 trials at most, kernel 3's
+        workspace made once): trials, accepted steps and every camera
+        tensor equal bit for bit (an all-reduce over one rank is the
+        identity), kernel 3 launched once per trial executed;
+      * tiled_compose.multi_blend_sharded against blending.multi_blend on
+        slice 2's blocks (``pano2``): within 0.05 on the 0..255 scale;
+      * render/fullres.render_full_dev through the image-split schedule
+        (fullres_multi_dp) and the canvas-split one
+        (fullres_multi_canvas) against the single-device render:
+        image-split within 1 level on >= 99.9% of pixels, canvas-split
+        beyond 2 levels on < 1% of pixels (tests/test_tiled.py's bound),
+        both NCC >= 0.999;
+      * dist_mincut.grid_mincut_sharded on ``seam_graph`` (slice 1's first
+        seam graph) against grid_mincut_ref on the card (the same side,
+        bit for bit) and kernel 1 (cut values within 1e-3 relative).
+    Prints one line per check with its wall; raises on any failure; the
+    process group is destroyed before it returns. Returns the launches
+    of the path's own calls (not of the single-card or checking calls)
+    as {"assemble_streams": kernel 3's in the sharded LM runs, counted
+    around each, "mincut": (kernel 1's, kernel 2's) from the start of
+    the phase to the end of the sharded min-cut, before kernel 1's
+    checking call; the single-card calls in between launch no
+    min-cut}."""
+    import torch.distributed as dist
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+    from simplepanorama_tpu_torch.parallel import dist_mincut
+    from simplepanorama_tpu_torch.parallel import tiled_compose as tc
+    from simplepanorama_tpu_torch.parallel.dist_ba import lm_run_sharded
+    from simplepanorama_tpu_torch.parallel.mesh import make_mesh
+    from simplepanorama_tpu_torch.render.blending import multi_blend
+    from simplepanorama_tpu_torch.render.fullres import render_full_dev
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tmp, "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    launches = 0
+    _reset_launches(maxflow)
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        _line("dist", check="init", backend=dist.get_backend(),
+              world=mesh.size, device_of_rank=str(mesh.device),
+              wall_s=time.perf_counter() - t0, device=card)
+
+        # ---- the match-sharded BA against the single-card eager run ----
+        for name, (cams, data, active, fast, lam) in ba_problems.items():
+            M, n_cams = data.mi.shape[0], cams.focal.shape[0]
+            ws = ba_kernel.workspace(M, n_cams, "cuda")
+            cams0 = _perturbed(torch, cams, active)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_e, ex_e, _ = ba.lm_run_eager(cams0, data, active, lam,
+                                           fast=fast, ws=ws)
+            torch.cuda.synchronize()
+            wall_e = time.perf_counter() - t0
+            ba_kernel.assemble_streams.launches = 0
+            t0 = time.perf_counter()
+            r_s, ex_s, reads = lm_run_sharded(cams0, data, active, lam,
+                                              mesh, fast=fast, ws=ws,
+                                              with_counts=True)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            k3 = ba_kernel.assemble_streams.launches
+            launches += k3
+            same = all(torch.equal(a, b) for a, b in zip(r_e.cams, r_s.cams))
+            same_err = bool(torch.equal(r_e.error, r_s.error))
+            counts = [int(r_e.n_iter), int(r_s.n_iter), int(r_e.n_accepted),
+                      int(r_s.n_accepted)]
+            _line("dist", check="lm_run_sharded", problem=name, fast=fast,
+                  tolerance="trials, accepted steps, cameras and error "
+                  "equal bit for bit; kernel 3 once per trial executed",
+                  matches=M, n_cams=n_cams, trials=counts[:2],
+                  accepted=counts[2:], trials_executed=[ex_e, ex_s],
+                  host_reads=reads, assemble_streams_launches=k3,
+                  cameras_equal_bits=same, error_equal_bits=same_err,
+                  error=float(r_s.error), eager_wall_s=wall_e,
+                  sharded_wall_s=wall_s, device=card)
+            if not (same and same_err and counts[0] == counts[1]
+                    and counts[2] == counts[3] and ex_e == ex_s
+                    and k3 == ex_s and counts[0] >= 8):
+                raise RuntimeError(f"dist: lm_run_sharded on {name} differs "
+                                   "from ba.lm_run_eager at world 1")
+
+        # ---- the sharded multiband blend on slice 2's blocks ----
+        st = pano2.stitch_params.state
+        cfg2 = pano2.config
+        imgs = st.imgs / torch.as_tensor(
+            pano2.stitch_params.gains, dtype=torch.float32,
+            device="cuda")[:, None, None, None]
+        from simplepanorama_tpu_torch.render.compose import \
+            apply_intensity_dev
+        imgs = apply_intensity_dev(imgs, st.intensity)
+        args = (imgs, st.seam_masks.float(), st.masks.float(), st.offs,
+                st.canvas_hw)
+        kw = dict(bands=cfg2.bands, sigma=float(cfg2.sigma_blend))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = multi_blend(*args, **kw)
+        torch.cuda.synchronize()
+        wall_1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = tc.multi_blend_sharded(*args, mesh, **kw)
+        torch.cuda.synchronize()
+        wall_m = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        _line("dist", check="multi_blend_sharded",
+              blocks=list(st.imgs.shape[:3]), canvas=list(st.canvas_hw),
+              max_abs_err=err, tolerance=0.05, single_wall_s=wall_1,
+              sharded_wall_s=wall_m, device=card)
+        if not err <= 0.05:
+            raise RuntimeError(f"dist: multi_blend_sharded off by {err}")
+        del got, want, imgs, args
+
+        # ---- the full-res schedules against the single-device render ----
+        full_imgs = pano2.images.load_connected_images(
+            [True] * len(pano2.images.loaded), cfg2.threads)
+        full_imgs = [full_imgs[g] for g in pano2.result.nodes]
+        walls = {}
+        outs = {}
+        for sched in (None, "dp", "canvas"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[sched] = render_full_dev(
+                pano2.stitch_params, cfg2, full_imgs,
+                mesh=None if sched is None else mesh, schedule=sched)
+            torch.cuda.synchronize()
+            walls[sched] = (time.perf_counter() - t0,
+                            torch.cuda.max_memory_allocated())
+        ref = outs[None].astype(np.int32)
+        for sched in ("dp", "canvas"):
+            diff = np.abs(outs[sched].astype(np.int32) - ref)
+            ncc = _ncc(outs[sched], outs[None])
+            within1 = float((diff <= 1).mean())
+            over2 = float((diff > 2).mean())
+            _line("dist", check="fullres_multi_" + sched,
+                  tolerance=("within 1 level on >= 99.9% of pixels"
+                             if sched == "dp" else
+                             "over 2 levels on < 1% of pixels")
+                  + ", NCC >= 0.999",
+                  shape=list(outs[sched].shape), max_level_diff=int(
+                      diff.max()), share_within_1=within1,
+                  share_over_2=over2, ncc=ncc, wall_s=walls[sched][0],
+                  peak_memory=walls[sched][1], single_wall_s=walls[None][0],
+                  single_peak_memory=walls[None][1], device=card)
+            ok = (within1 >= 0.999) if sched == "dp" else (over2 < 0.01)
+            if outs[sched].shape != ref.shape or not ok or ncc < 0.999:
+                raise RuntimeError(f"dist: fullres_multi_{sched} disagrees "
+                                   "with the single-device render")
+        del outs, ref, full_imgs
+
+        # ---- the column-sharded min-cut against the plain solver and
+        # kernel 1 ----
+        host = [t.cpu().numpy() for t in seam_graph]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        side_s = dist_mincut.grid_mincut_sharded(*seam_graph, mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches_mc = _launches(maxflow)
+        t0 = time.perf_counter()
+        side_r = maxflow.grid_mincut_ref(*seam_graph)
+        torch.cuda.synchronize()
+        wall_r = time.perf_counter() - t0
+        side_k = maxflow.grid_mincut(*seam_graph)
+        same = bool(torch.equal(side_s, side_r))
+        v_s = maxflow.cut_value(*host, side_s.cpu().numpy())
+        v_k = maxflow.cut_value(*host, side_k.cpu().numpy())
+        _line("dist", check="grid_mincut_sharded",
+              tolerance="side equal to grid_mincut_ref's bit for bit, cut "
+              "within 1e-3 relative of kernel 1's",
+              shape=list(seam_graph[0].shape),
+              nodes=int(host[3].sum()), equal_to_plain_bits=same,
+              cut_sharded=v_s, cut_kernel1=v_k, sharded_wall_s=wall_s,
+              plain_wall_s=wall_r, dist_mincut_launches=list(launches_mc),
+              device=card)
+        if not same or abs(v_s - v_k) > 1e-3 * max(1.0, abs(v_k)):
+            raise RuntimeError("dist: grid_mincut_sharded disagrees with "
+                               f"grid_mincut_ref ({same}) or kernel 1 "
+                               f"({v_s} vs {v_k})")
+    finally:
+        dist.destroy_process_group()
+    return {"assemble_streams": launches, "mincut": launches_mc}
+
+
+def _hostcut_phase(torch, card, pano1):
+    """render/graphcut.graph_cut, the per-image host loop, on slice 1's
+    blocks on the card (the per-image crops of its state, the BA's
+    insertion order): one kernel-1 launch per cut, 11 for 12 views, and
+    seams equal to the device chain's (graph_cut_state, which set_config
+    ran on the card) on >= 99.9% of pixels, as the JAX package's
+    test_device_chain_matches_host_loop holds. Prints one line; returns
+    the launches of kernels 1, 2 and 3 in graph_cut."""
+    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+    from simplepanorama_tpu_torch.render import graphcut
+    from simplepanorama_tpu_torch.render.blending import pad_stack
+    params = pano1.stitch_params
+    st = params.state
+    seq = [n for n, _ in pano1.result.order]
+    imgs_l, masks_l, corners_l = params._lists()
+    _reset_launches(maxflow)
+    ba_kernel.assemble_streams.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seams_l = graphcut.graph_cut(imgs_l, masks_l, corners_l, seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(maxflow)
+    k3 = ba_kernel.assemble_streams.launches
+    seams = pad_stack(seams_l, st.masks.shape[1:], "cuda") > 0
+    agree = float((seams == st.seam_masks).float().mean())
+    _line("hostcut", tolerance="one kernel-1 launch per cut, seams equal "
+          "to the device chain's on >= 99.9% of pixels",
+          views=len(seq), launches={
+        "grid_mincut": launches[0], "grid_mincut_tiled": launches[1],
+        "assemble_streams": k3},
+          seam_agreement_with_device_chain=agree, wall_s=wall, device=card)
+    if launches != (len(seq) - 1, 0) or agree < 0.999:
+        raise RuntimeError(f"hostcut: launches {launches}, seam agreement "
+                           f"{agree}")
+    return launches + (k3,)
+
+
+_TWO_CARD_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import simplepanorama_tpu_torch as T
+from simplepanorama_tpu_torch.parallel import multihost
+from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
+multihost.initialize()
+mesh = pipeline_mesh()
+pano = T.Panorama(sys.argv[3:], device="cuda").stitch(
+    T.Config(cut=True, init_size=1400, gain_compensation=True))
+out = dict(connected=np.array(pano.connected), K=pano.result.K,
+           preview=pano.get_preview(), full=pano.get_panorama(),
+           world=np.array(mesh.size))
+if mesh.rank == 0:
+    np.savez(sys.argv[2], **out)
+print("rank", mesh.rank, "ok", flush=True)
+"""
+
+
+def _two_card_phase(torch, card, tmp, paths, single):
+    """With two or more cards: slice 2's stitch, preview and full-res in a
+    world of 2 ranks over NCCL (parallel/launch.run_world, one process a
+    card) against the single-card run ``single`` = (connected, focals,
+    preview, full): the same views connected, focals within 1e-3
+    relative, preview and full-res NCC >= 0.99. With one card it prints
+    why it was skipped."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        _line("two_card", skipped=True, cards=n,
+              reason="one card: the 2-rank NCCL run needs two", device=card)
+        return
+    from simplepanorama_tpu_torch.parallel.launch import run_world
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(tmp, "two_card_worker.py")
+    with open(script, "w") as f:
+        f.write(_TWO_CARD_WORKER)
+    out_p = os.path.join(tmp, "two_card.npz")
+    t0 = time.perf_counter()
+    outs = run_world([script, here, out_p, *paths], 2, timeout_s=600)
+    wall = time.perf_counter() - t0
+    for rank, (rc, log) in enumerate(outs):
+        if rc != 0:
+            raise RuntimeError(f"two_card: rank {rank} failed:\n{log[-3000:]}")
+    r = np.load(out_p)
+    connected, focals, preview, full = single
+    df = float(np.max(np.abs(r["K"][:, 0, 0] / focals - 1.0)))
+    ok_shape = r["preview"].shape == preview.shape and \
+        r["full"].shape == full.shape
+    ncc_p = _ncc(r["preview"], preview) if ok_shape else None
+    ncc_f = _ncc(r["full"], full) if ok_shape else None
+    _line("two_card", world=int(r["world"]), connected=r["connected"].tolist(),
+          focal_rel_diff=df, preview_ncc=ncc_p, full_ncc=ncc_f, wall_s=wall,
+          device=card)
+    if (tuple(r["connected"]) != tuple(connected) or df > 1e-3
+            or not ok_shape or ncc_p < 0.99 or ncc_f < 0.99):
+        raise RuntimeError("two_card: the 2-rank stitch disagrees with the "
+                           "single-card one")
 
 
 def main():
@@ -1176,6 +1494,7 @@ def main():
             raise RuntimeError(f"focals {focals} vs true {f_true}")
         if not np.isfinite(preview).all() or cov <= 0.9:
             raise RuntimeError(f"preview coverage {cov}")
+        pano1 = pano     # for the dist and hostcut phases
         del pano, preview
 
         # ---- slice 2: 12 views of 2800 px at init_size 1400, gain,
@@ -1244,6 +1563,9 @@ def main():
                                f"preview {preview.shape}")
         if ncc_full < 0.95:
             raise RuntimeError(f"full-res vs preview NCC {ncc_full}")
+        pano2 = pano     # for the dist phase
+        slice2_single = (tuple(pano.connected), focals, preview, full)
+        paths2 = list(paths)
         del pano, preview, full, small
 
         # ---- slice 3: the CLI on 12 views of 1400 px, Lowe objective,
@@ -1360,6 +1682,28 @@ def main():
                                "slice 3's BA problem, wanted 2")
         del preview, full, small, cams, data, streams, sums
 
+        # ---- the multi-device layer at world 1 over NCCL, and the host
+        # graph-cut loop on the card ----
+        dist_problems = {}
+        for name, res in (("slice1_relaxed", pano1.result),
+                          ("slice3_lowe", res3)):
+            comp, adjres, _, _, cfg_p = problems[name]
+            cams, data, active, _ = _slice3_ba_problem(torch, comp, adjres,
+                                                       res)
+            dist_problems[name] = (cams, data, active, bool(cfg_p.fast),
+                                   float(cfg_p.lambda_))
+        seam1 = _first_cut_graph(torch, pano1.stitch_params.state,
+                                 [n for n, _ in pano1.result.order])
+        t0 = time.perf_counter()
+        launches_dist = _dist_phase(torch, card, tmp, dist_problems, pano2,
+                                    seam1)
+        _line("dist", summary=True, wall_s=time.perf_counter() - t0,
+              launches=launches_dist, device=card)
+        launches_hostcut = _hostcut_phase(torch, card, pano1)
+        del pano1, pano2, dist_problems, seam1
+        _two_card_phase(torch, card, tmp, paths2, slice2_single)
+        del slice2_single
+
         # ---- the bundle adjustment alone: slice 1's problem (relaxed)
         # and slice 3's (Lowe), eager trials against CUDA graphs ----
         ba_runs = _ba_phase(torch, problems, card)
@@ -1421,7 +1765,9 @@ def main():
          # its launches on each path that runs it (slice 5: the cut=True
          # re-composite of the little planet)
          "launches_by_path": {"slice": launches1[0], "slice2": launches2[0],
-                              "slice5": launches5[0]},
+                              "slice5": launches5[0],
+                              "hostcut": launches_hostcut[0],
+                              "dist": launches_dist["mincut"][0]},
          # largest |cut value (kernel) - cut value (plain)| over its inputs
          "max_abs_err": max(errs1),
          "ms": timing1[0],
@@ -1435,7 +1781,9 @@ def main():
          "replaces": "simplepanorama_tpu/ops/maxflow.py:666",
          "launches": launches2[1],
          "launches_by_path": {"slice": launches1[1], "slice2": launches2[1],
-                              "slice5": launches5[1]},
+                              "slice5": launches5[1],
+                              "hostcut": launches_hostcut[1],
+                              "dist": launches_dist["mincut"][1]},
          "max_abs_err": max(errs2),
          "ms": timing2[0],
          "plain_ms": timing2[1],
@@ -1449,10 +1797,12 @@ def main():
          # once per LM trial executed: its launches in the stitches of
          # slices 1, 2 and 5 and in slice 3's four CLI commands
          "launches": launches1_k3 + launches2_k3 + launches3_path
-         + launches5_k3,
+         + launches5_k3 + launches_dist["assemble_streams"],
          "launches_by_path": {"slice": launches1_k3, "slice2": launches2_k3,
                               "slice3": launches3_path,
                               "slice5": launches5_k3,
+                              "dist": launches_dist["assemble_streams"],
+                              "hostcut": launches_hostcut[2],
                               "ba_phase": {k: v["launches"]
                                            for k, v in ba_runs.items()}},
          # its checking calls on slice 3's own BA problem, kernel3 phase

@@ -14,6 +14,14 @@ Adjacency weight of an accepted pair = overlap fraction.
 RANSAC draws come from ``pair_draws(i, j, n_iter, m)``: by default a
 ``torch.Generator`` seeded from (seed, i, j), so a pair's draws depend on
 its identity alone; tests replace the hook to inject JAX's draws.
+
+In a world of several ranks (parallel.mesh.pipeline_mesh) each pass takes
+this rank's contiguous shard of its pair list, padded with repeats of its
+last pair so that every rank runs the same shapes, and all-gathers its
+results (the counts; the verification outputs), as the JAX package's
+multi-process passes do. Pass 2 then matches its pairs again, since
+their pass-1 tables may live on another rank. Every rank ends with the
+same Adjacency.
 """
 
 from __future__ import annotations
@@ -105,15 +113,41 @@ def _stack_features(feats):
     return xy, desc, valid
 
 
+def _pair_shard(pairs, mesh):
+    """This rank's contiguous shard of ``pairs``, padded with repeats of
+    its last pair (or of the list's) to ceil(len / ranks); no mesh: the
+    whole list."""
+    if mesh is None or not pairs:
+        return list(pairs)
+    from simplepanorama_tpu_torch.parallel.multihost import host_shard
+    per = (len(pairs) + mesh.size - 1) // mesh.size
+    mine = host_shard(pairs, mesh.size, mesh.rank)
+    return mine + [mine[-1] if mine else pairs[-1]] * (per - len(mine))
+
+
+def _gather_pairs(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The per-pair results of every rank's shard, in pair order (first
+    ``n``); no mesh: ``x``."""
+    if mesh is None:
+        return x
+    from simplepanorama_tpu_torch.parallel.mesh import all_gather_cat
+    return all_gather_cat(x, mesh)[:n]
+
+
 def raw_match_counts(feats, cfg: Config, chunk: int = 64,
                      progress: Optional[Callable[[float], None]] = None,
                      cancelled: Optional[Callable[[], bool]] = None):
     """Pass 1: ratio-test match counts for all upper-triangular pairs.
     Returns (counts (N, N), device tables (match_idx, match_valid, n_raw)
-    with pair k of the upper-triangular order at row k)."""
+    with pair k of the upper-triangular order at row k). In a world of
+    several ranks each rank counts its shard of the pairs, the counts are
+    all-gathered, and the tables (this rank's pairs only) are None."""
+    from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
     n = len(feats)
     counts = np.zeros((n, n))
-    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    all_pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    mesh = pipeline_mesh()
+    pairs = _pair_shard(all_pairs, mesh)
     xy, desc, valid = _stack_features(feats)
     total = max(1, len(pairs))
     tabs = []
@@ -127,10 +161,13 @@ def raw_match_counts(feats, cfg: Config, chunk: int = 64,
                                      cfg.max_matches_per_pair))
         if progress is not None:
             progress(len(blk) / total)
+    if not tabs:
+        return counts, None
     mi, mv, nm = (torch.cat(t) for t in zip(*tabs))
-    for (i, j), c in zip(pairs, nm.tolist()):
+    for (i, j), c in zip(all_pairs,
+                         _gather_pairs(nm, mesh, len(all_pairs)).tolist()):
         counts[i, j] = float(c)
-    return counts, (mi, mv, nm)
+    return counts, (None if mesh is not None else (mi, mv, nm))
 
 
 def heuristic_match_filter(counts: np.ndarray, n: int) -> np.ndarray:
@@ -155,8 +192,9 @@ def build_adjacency(feats, sizes: Sequence[Tuple[int, int]], cfg: Config,
                     cancelled: Optional[Callable[[], bool]] = None,
                     pair_draws: Optional[Callable] = None) -> Adjacency:
     """Full two-pass adjacency computation (panorama::get_adj_par)."""
+    from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
     n = len(feats)
-    counts, (mi_tab, mv_tab, nm_tab) = raw_match_counts(
+    counts, tables = raw_match_counts(
         feats, cfg, chunk=64,
         progress=(lambda d: progress(d * 0.5)) if progress else None,
         cancelled=cancelled)
@@ -169,18 +207,21 @@ def build_adjacency(feats, sizes: Sequence[Tuple[int, int]], cfg: Config,
 
     pair_pos = {p: k for k, p in enumerate(
         (i, j) for i in range(n) for j in range(i + 1, n))}
-    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)
-             if filtered[i, j] >= _MIN_RAW_MATCHES]
-    if not pairs:
+    all_pairs = [(i, j) for i in range(n) for j in range(i + 1, n)
+                 if filtered[i, j] >= _MIN_RAW_MATCHES]
+    if not all_pairs:
         return result
+    mesh = pipeline_mesh()
+    pairs = _pair_shard(all_pairs, mesh)
 
     xy, desc, valid = _stack_features(feats)
     dev = xy.device
     if pair_draws is None:
         pair_draws = torch_pair_draws(seed, n, dev)
     hw = torch.as_tensor(np.array(sizes, np.int64), device=dev)
-    M = mi_tab.shape[1]
+    M = cfg.max_matches_per_pair
     total = len(pairs)
+    outs = []
     for s in range(0, len(pairs), chunk):
         if cancelled is not None and cancelled():
             raise RuntimeError("Process canceled")
@@ -191,25 +232,36 @@ def build_adjacency(feats, sizes: Sequence[Tuple[int, int]], cfg: Config,
         draws = torch.stack([torch.as_tensor(
             pair_draws(i, j, cfg.RANSAC_iterations, M), dtype=torch.float32,
             device=dev) for i, j in blk])
-        match_valid = mv_tab[rows]
-        q, t = gather_match_coords(xy[qi], xy[ti], mi_tab[rows], match_valid)
+        if tables is not None:
+            mi_tab, mv_tab, nm_tab = tables
+            match_idx, match_valid, n_raw = (mi_tab[rows], mv_tab[rows],
+                                             nm_tab[rows])
+        else:
+            # the pass-1 tables of these pairs may be on another rank
+            match_idx, match_valid, n_raw = match_pair_batch(
+                desc[qi], desc[ti], valid[qi], valid[ti],
+                cfg.max_matches_per_pair)
+        q, t = gather_match_coords(xy[qi], xy[ti], match_idx, match_valid)
         out = _verify_core(
             q, t, match_valid, xy[qi], xy[ti], valid[qi], valid[ti],
-            hw[qi], hw[ti], draws, nm_tab[rows],
+            hw[qi], hw[ti], draws, n_raw,
             keep_cap=cfg.max_keypoints, margin=float(cfg.x_margin),
             min_overlap=cfg.min_overlap,
             overlap_inl_match=cfg.overlap_inl_match,
             overlap_inl_keyp=cfg.overlap_inl_keyp, conf=cfg.conf)
-        accept, weight, H, kq, kt, kv = (x.cpu().numpy() for x in out)
-        for b, (i, j) in enumerate(blk):
-            if not accept[b]:
-                continue
-            adj[i, j] = weight[b]
-            hom[i, j] = H[b]
-            hom[j, i] = np.linalg.inv(H[b])
-            m = kv[b]
-            result.matches[(i, j)] = (kq[b][m], kt[b][m])
-            result.matches[(j, i)] = (kt[b][m], kq[b][m])
+        outs.append(out)
         if progress is not None:
             progress(len(blk) / total * 0.5)
+    accept, weight, H, kq, kt, kv = (
+        _gather_pairs(torch.cat(x), mesh, len(all_pairs)).cpu().numpy()
+        for x in zip(*outs))
+    for b, (i, j) in enumerate(all_pairs):
+        if not accept[b]:
+            continue
+        adj[i, j] = weight[b]
+        hom[i, j] = H[b]
+        hom[j, i] = np.linalg.inv(H[b])
+        m = kv[b]
+        result.matches[(i, j)] = (kq[b][m], kt[b][m])
+        result.matches[(j, i)] = (kt[b][m], kq[b][m])
     return result

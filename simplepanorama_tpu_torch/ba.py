@@ -62,6 +62,31 @@ class CamState(NamedTuple):
     b: torch.Tensor        # (M, 2) estimated source points
 
 
+def with_pair_tables(data: BAData) -> BAData:
+    """``data`` with its realized-pair tables (pi, pj, mp) computed on the
+    host from mi / mj, for synthetic problems (stitch.build_ba_data
+    builds them for a stitch): the unique (mi, mj) rows padded to a
+    multiple of 64, and each match's row."""
+    mi = data.mi.cpu().numpy()
+    mj = data.mj.cpu().numpy()
+    uniq, inv = np.unique(np.stack([mi, mj], 1), axis=0,
+                          return_inverse=True)
+    P = max(64, (len(uniq) + 63) // 64 * 64)
+    pi = np.zeros(P, np.int64)
+    pj = np.zeros(P, np.int64)
+    pi[:len(uniq)] = uniq[:, 0]
+    pj[:len(uniq)] = uniq[:, 1]
+    T = lambda a: torch.as_tensor(a, device=data.mi.device)
+    return data._replace(pi=T(pi), pj=T(pj),
+                         mp=T(inv.reshape(-1).astype(np.int64)))
+
+
+def model_homography(cams: CamState, i: int, j: int) -> torch.Tensor:
+    """H(i, j) of the BA model (ret_hmat): maps b-points to image i."""
+    c6 = _cam6(cams)
+    return _pair_H(c6[i], c6[j])
+
+
 def _K_of(focal, ppal):
     z = torch.zeros_like(focal)
     o = torch.ones_like(focal)
@@ -427,6 +452,9 @@ class LMProblem(NamedTuple):
     vaug_idx: torch.Tensor    # () int64, camera of the V-augment focal
     max_iter: torch.Tensor    # () int64
     ws: Optional[ba_kernel.Workspace]   # kernel scratch, on the card
+    # process group over which the matches are split (parallel.dist_ba):
+    # the camera system and the errors are summed over its ranks
+    group: object = None
 
 
 # trials between two host reads of the termination flag: an LM run takes
@@ -444,10 +472,11 @@ def _active_matches(data: BAData, cam_active):
 
 
 def lm_problem(data: BAData, cam_active, vaug_idx=None, max_iter: int = 50,
-               ws=None) -> LMProblem:
+               ws=None, group=None) -> LMProblem:
     """The fixed part of an LM run. ``vaug_idx`` (int or () tensor): the
     camera whose focal scales the V augment; by default the last active
-    one (the reference's quirk)."""
+    one (the reference's quirk). With a process ``group``, ``data`` is
+    this rank's share of the matches (parallel.mesh.shard_matches)."""
     dev = cam_active.device
     if vaug_idx is None:
         idx = torch.arange(cam_active.shape[0], device=dev)
@@ -460,14 +489,42 @@ def lm_problem(data: BAData, cam_active, vaug_idx=None, max_iter: int = 50,
         cam_active=cam_active, active_m=_active_matches(data, cam_active),
         vaug_idx=vaug_idx.reshape(()).to(torch.int64),
         max_iter=torch.full((), max_iter, dtype=torch.int64, device=dev),
-        ws=ws)
+        ws=ws, group=group)
+
+
+def _sum_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (no group: ``x``)."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def _error(cams: CamState, pb: LMProblem, fast: bool) -> torch.Tensor:
+    """total_error over every rank's matches."""
+    return _sum_ranks(total_error(cams, pb.data, pb.active_m, fast),
+                      pb.group)
+
+
+def _camera_sums(floats, pb: LMProblem, n: int, fast: bool):
+    """assemble_streams over this rank's matches (kernel 3 on the card),
+    then, with a group, one all_reduce of its four outputs packed into one
+    buffer: the camera system of every rank's matches."""
+    sums = ba_kernel.assemble_streams(*floats, pb.mi, pb.mj, n,
+                                      with_schur=not fast, ws=pb.ws)
+    if pb.group is None:
+        return sums
+    buf = _sum_ranks(torch.cat([t.reshape(-1) for t in sums]), pb.group)
+    return tuple(p.reshape(t.shape) for p, t in
+                 zip(torch.split(buf, [t.numel() for t in sums]), sums))
 
 
 def lm_init(cams: CamState, pb: LMProblem, lambda0, fast: bool) -> LMState:
     dev = cams.focal.device
     z = torch.zeros((), dtype=torch.int64, device=dev)
     return LMState(
-        cams=cams, err=total_error(cams, pb.data, pb.active_m, fast),
+        cams=cams, err=_error(cams, pb, fast),
         lam=torch.full((), float(lambda0), dtype=torch.float32, device=dev),
         it=z, strikes=z.clone(), n_acc=z.clone())
 
@@ -483,21 +540,31 @@ def lm_trial(st: LMState, pb: LMProblem, fast: bool) -> LMState:
     accept test applied with torch.where alone. A trial after the run has
     ended (``it`` at max_iter, or 6 rejections in a row) changes nothing,
     so the result does not depend on how often the host reads the
-    termination flag. No host sync on any device."""
+    termination flag. No host sync on any device.
+
+    With ``pb.group`` (the match-sharded BA, parallel.dist_ba) this rank
+    sums its own matches, one all_reduce completes the camera system and
+    one the trial error; every rank solves the same system, and the
+    back-substitution of its own matches' b stays local."""
+    return lm_step(st, pb, fast)[0]
+
+
+def lm_step(st: LMState, pb: LMProblem, fast: bool):
+    """lm_trial, also returning the trial's error (over every rank's
+    matches) whether or not the trial was accepted."""
     cams = st.cams
     n = cams.focal.shape[0]
     focal_last = cams.focal.index_select(0, pb.vaug_idx.reshape(1))[0]
     r, Ai, Aj, B, Vinv, eB, floats = _streams(
         cams, pb.data, pb.active_m, st.lam, focal_last, fast)
-    sums = ba_kernel.assemble_streams(*floats, pb.mi, pb.mj, n,
-                                      with_schur=not fast, ws=pb.ws)
+    sums = _camera_sums(floats, pb, n, fast)
     S, rhs = _system(sums, _aug_scales(cams.focal), st.lam, pb.cam_active,
                      fast)
     da = _solve_preconditioned(S, rhs)
     db = None if fast else _back_substitute(Ai, Aj, B, eB, Vinv, da,
                                             pb.data)
     trial = _apply_delta(cams, da, db, pb.cam_active, pb.active_m)
-    err_new = total_error(trial, pb.data, pb.active_m, fast)
+    err_new = _error(trial, pb, fast)
     live = _live(st, pb.max_iter)
     ok = live & (err_new < st.err) & torch.isfinite(err_new)
     return LMState(
@@ -508,7 +575,7 @@ def lm_trial(st: LMState, pb: LMProblem, fast: bool) -> LMState:
         it=st.it + live.to(torch.int64),
         strikes=torch.where(live, torch.where(ok, torch.zeros_like(
             st.strikes), st.strikes + 1), st.strikes),
-        n_acc=st.n_acc + ok.to(torch.int64))
+        n_acc=st.n_acc + ok.to(torch.int64)), err_new
 
 
 @contextlib.contextmanager
@@ -538,11 +605,13 @@ def _result(st: LMState) -> LMResult:
 
 def lm_run_eager(cams: CamState, data: BAData, cam_active, lambda0,
                  fast: bool = False, max_iter: int = 50, vaug_idx=None,
-                 read_every: int = READ_EVERY, ws=None):
+                 read_every: int = READ_EVERY, ws=None, group=None):
     """The LM run as eager trials, reading the termination flag once every
     ``read_every`` trials. Returns (LMResult, trials executed, the no-op
-    ones after the end included, host reads)."""
-    pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws)
+    ones after the end included, host reads). With a process ``group``,
+    ``data`` and ``cams.b`` are this rank's share of the matches and every
+    rank runs the same trials (parallel.dist_ba)."""
+    pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws, group)
     st = lm_init(cams, pb, lambda0, fast)
     on_card = cams.focal.device.type == "cuda"
     reads = 0

@@ -7,8 +7,11 @@ rounded to a multiple of 8 and goes through ops.sift.extract_sift_batch in
 chunks sized to a memory budget (``_sift_chunk_size``; results are per
 image, so the chunking changes nothing but peak memory). The images come
 as a list, or as an io.PendingLoad still decoding (the streaming path of
-run_pipeline). Not ported: the JAX package's chunk self-tuning on
-compile-time OOM and its multi-process extraction.
+run_pipeline). In a world of several ranks (parallel.mesh.pipeline_mesh)
+each rank extracts its contiguous shard of the images (multihost.
+host_shard) at the common pad and the feature tables are all-gathered,
+as the JAX package's multi-process extraction does; the streaming decode
+is single-process. Not ported: the chunk self-tuning on compile-time OOM.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.io import PendingLoad
 from simplepanorama_tpu_torch.ops.sift import extract_sift_batch
+from simplepanorama_tpu_torch.utils.device import checked_device
 
 
 
@@ -61,16 +65,19 @@ class FeatureSet(list):
 def extract_features(images, cfg: Config,
                      progress: Optional[Callable[[float], None]] = None,
                      cancelled: Optional[Callable[[], bool]] = None,
-                     device="cpu") -> List[Features]:
+                     device="cuda") -> List[Features]:
     """SIFT features on ``device`` for a list of BGR uint8 images, or for
     an io.PendingLoad whose images are still decoding: then each chunk of
     images goes to SIFT as soon as it has decoded, and the load is
     finalized (the ImageSet filled in order) before this returns.
-    ``cancelled`` is polled between chunks."""
+    ``cancelled`` is polled between chunks. ``device`` is the card unless
+    the caller asks for another."""
+    device = checked_device(device)
+    from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
     pending = images if isinstance(images, PendingLoad) else None
-    # (the JAX package also takes the list for multi-process extraction;
-    # the port runs one device)
-    if pending is not None and any(d is None for d in pending.dims):
+    mesh = pipeline_mesh()
+    if pending is not None and (mesh is not None
+                                or any(d is None for d in pending.dims)):
         # a header the probe could not read: every decode first
         images = pending.finalize()
         pending = None
@@ -82,6 +89,9 @@ def extract_features(images, cfg: Config,
         outs, hw_d, batch_d = _extract_stream(pending, cfg, cancelled,
                                               device)
         pending.finalize()
+    elif mesh is not None:
+        outs, hw_d, batch_d = _extract_sharded(images, cfg, cancelled,
+                                               device, mesh)
     else:
         outs, hw_d, batch_d = _extract_list(images, cfg, cancelled, device)
     n = hw_d.shape[0]
@@ -123,11 +133,12 @@ def _pad_edge(im: np.ndarray, Hp: int, Wp: int) -> np.ndarray:
 
 
 def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
-                  device):
-    """Every image padded and uploaded at once, SIFT in chunks of
+                  device, pad_dims=None):
+    """Every image padded (to the largest of ``pad_dims``, by default of
+    the images) and uploaded at once, SIFT in chunks of
     ``_sift_chunk_size``. Returns (per-chunk SIFT outputs, hw, batch)."""
     n = len(images)
-    Hp, Wp = _pad8([im.shape[:2] for im in images])
+    Hp, Wp = _pad8(pad_dims or [im.shape[:2] for im in images])
     batch = np.zeros((n, Hp, Wp, 3), np.uint8)
     for i, im in enumerate(images):
         batch[i] = _pad_edge(im, Hp, Wp)
@@ -141,6 +152,29 @@ def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
             raise RuntimeError("Process canceled")
         outs.append(_sift(batch_d[s:s + G], hw_d[s:s + G], cfg))
     return outs, hw_d, batch_d
+
+
+def _extract_sharded(images: Sequence[np.ndarray], cfg: Config, cancelled,
+                     device, mesh):
+    """This rank's contiguous shard of the images (multihost.host_shard),
+    padded with 8x8 blanks to ceil(n / ranks) so that every rank runs the
+    same shapes, extracted at the common pad of all the images; then one
+    all_gather per table. Returns (the gathered outputs as one chunk, hw
+    of every image, None: the pixels stay with their ranks)."""
+    from simplepanorama_tpu_torch.parallel.mesh import all_gather_cat
+    from simplepanorama_tpu_torch.parallel.multihost import host_shard
+    n = len(images)
+    per = (n + mesh.size - 1) // mesh.size
+    local = [images[i] for i in host_shard(list(range(n)), mesh.size,
+                                             mesh.rank)]
+    local += [np.zeros((8, 8, 3), np.uint8)] * (per - len(local))
+    outs, _, _ = _extract_list(local, cfg, cancelled, device,
+                               pad_dims=[im.shape[:2] for im in images])
+    tables = (torch.cat(parts) for parts in zip(*outs))
+    gathered = [all_gather_cat(t, mesh)[:n] for t in tables]
+    hw_d = torch.as_tensor([im.shape[:2] for im in images],
+                           dtype=torch.int64, device=device)
+    return [gathered], hw_d, None
 
 
 def _extract_stream(pending: PendingLoad, cfg: Config, cancelled, device):

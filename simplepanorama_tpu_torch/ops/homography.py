@@ -68,6 +68,13 @@ def _normalize_2d(pts):
     return tr, sc
 
 
+def normalize_2d(pts: torch.Tensor) -> torch.Tensor:
+    """Conditioning matrix of (..., n, 2) points: translate by the mean,
+    scale per axis by the mean absolute deviation (util::Normalize2D,
+    _homography.cpp:144-168)."""
+    return _cond_matrix(*_normalize_2d(pts))
+
+
 def _cond_matrix(tr, sc):
     z = torch.zeros_like(tr[..., 0])
     o = torch.ones_like(z)

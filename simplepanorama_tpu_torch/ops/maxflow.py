@@ -141,31 +141,69 @@ def _dist_to_sink_scan(caps, demand, node, n_pass: int, stats=None):
                        torch.full_like(caps[0], _INF))
 
 
-def _init_state(cap_h, cap_v, excess0, node):
+# sweeps of _dist_to_sink between two host reads of its predicate
+_SWEEP_READ_EVERY = 8
+
+
+def _dist_to_sink(caps, demand, node, n_sweep: int, shift=_shift,
+                  gany=None):
+    """BFS distance to the nearest sink-demand node by lock-step sweeps
+    (port of the JAX package's _dist_to_sink): each sweep relaxes every
+    cell from its 4 neighbours, d[p] = min(d[p], d[q] + 1) over residual
+    edges p -> q, restricted to the node set, until a sweep changes
+    nothing or ``n_sweep`` sweeps ran. ``shift`` and ``gany`` supply the
+    neighbour access and the any-over-the-grid of the loop predicate, so
+    the column-sharded solver (parallel/dist_mincut.py) runs it with halo
+    exchanges and an all_reduce. The host reads the predicate of the last
+    sweep of every _SWEEP_READ_EVERY: a sweep after the fixpoint changes
+    nothing, so the distances are the same as with a read every sweep.
+    Same fixpoint as _dist_to_sink_scan, float32 distances, _INF where a
+    node reaches no sink."""
+    gany = gany or (lambda b: b)
+    inf = torch.full_like(caps[0], _INF)
+    d = torch.where(demand & node, torch.zeros_like(inf), inf)
+    it = 0
+    while it < n_sweep:
+        for _ in range(min(_SWEEP_READ_EVERY, n_sweep - it)):
+            prev = d
+            best = d
+            for k, (dy, dx) in enumerate(_DIRS):
+                cand = torch.where(caps[k] > 0, shift(d, dy, dx, _INF) + 1.0,
+                                   inf)
+                best = torch.minimum(best, cand)
+            d = torch.where(node, best, inf)
+            it += 1
+        if not bool(gany((d < prev).any())):
+            break
+    return d
+
+
+def _init_state(cap_h, cap_v, excess0, node, shift=_shift):
     """Residual capacities and clipped excess of the seam graph
     (maxflow.py:164-183): caps[k][p] = residual capacity from p toward
     its k-neighbour, t-links clamped to the incident capacity sum + 1."""
     nodef = node.to(torch.float32)
-    cap_h = cap_h.to(torch.float32) * nodef * _shift(nodef, 0, 1, 0.0)
-    cap_v = cap_v.to(torch.float32) * nodef * _shift(nodef, 1, 0, 0.0)
-    caps = [cap_h, _shift(cap_h, 0, -1, 0.0),
-            cap_v, _shift(cap_v, -1, 0, 0.0)]
+    cap_h = cap_h.to(torch.float32) * nodef * shift(nodef, 0, 1, 0.0)
+    cap_v = cap_v.to(torch.float32) * nodef * shift(nodef, 1, 0, 0.0)
+    caps = [cap_h, shift(cap_h, 0, -1, 0.0),
+            cap_v, shift(cap_v, -1, 0, 0.0)]
     e = torch.where(node, excess0.to(torch.float32),
                     torch.zeros_like(cap_h))
     cap_sum = caps[0] + caps[1] + caps[2] + caps[3] + 1.0
     return caps, torch.minimum(torch.maximum(e, -cap_sum), cap_sum)
 
 
-def _push_phase(caps, e, h, interior=None):
+def _push_phase(caps, e, h, interior=None, shift=_shift):
     """One push/relabel phase (the 4 push sub-steps, each lock-step, then
     the relabel); ``caps`` is updated in place, (e, h) returned. With
     ``interior``, only those cells push or lift (a row tile of the tiled
-    solver, maxflow.py:591-607); the others only receive."""
+    solver, maxflow.py:591-607); the others only receive. ``shift``
+    supplies the neighbour values (halo exchanges when sharded)."""
     zero = torch.zeros_like(e)
     inf = torch.full_like(e, _INF)
     # h is unchanged by the pushes: the shifted heights and the "exactly
     # one lower" tests serve every push sub-step and the relabel
-    h_nb = [_shift(h, dy, dx, _INF) for dy, dx in _DIRS]
+    h_nb = [shift(h, dy, dx, _INF) for dy, dx in _DIRS]
     lower = [h == nb + 1.0 for nb in h_nb]
     for k, (dy, dx) in enumerate(_DIRS):
         admissible = (e > 0) & lower[k] & (caps[k] > 0)
@@ -173,7 +211,7 @@ def _push_phase(caps, e, h, interior=None):
             admissible &= interior
         flow = torch.where(admissible, torch.minimum(e, caps[k]), zero)
         caps[k] = caps[k] - flow
-        back = _shift(flow, -dy, -dx, 0.0)
+        back = shift(flow, -dy, -dx, 0.0)
         caps[_REV[k]] = caps[_REV[k]] + back
         e = e - flow + back
     min_h = inf
@@ -188,12 +226,48 @@ def _push_phase(caps, e, h, interior=None):
     return e, torch.where(lift, min_h + 1.0, h)
 
 
+def _mincut_core(cap_h, cap_v, excess0, node, max_outer: int,
+                 inner_iters: int, sweep_iters: int, shift=_shift,
+                 gany=None, stats=None) -> torch.Tensor:
+    """Solver core shared by the single-device and the column-sharded
+    variants (port of the JAX package's _mincut_core): ``shift`` supplies
+    neighbour values (with halo exchanges when the grid is sharded) and
+    ``gany`` reduces loop predicates over the whole grid. The identity
+    pair takes the scan BFS (_dist_to_sink_scan), any other the sweep BFS
+    (_dist_to_sink), whose shifts reach one cell; both reach the same
+    distances. The outer while_loop is a Python loop with one host read
+    per round."""
+    gany_ = gany or (lambda b: b)
+    node = node.to(torch.bool)
+    caps, e = _init_state(cap_h, cap_v, excess0, node, shift)
+
+    if shift is _shift:
+        def bfs():
+            return _dist_to_sink_scan(caps, e < 0, node, sweep_iters, stats)
+    else:
+        def bfs():
+            return _dist_to_sink(caps, e < 0, node, sweep_iters, shift,
+                                 gany)
+
+    d = bfs()
+    it = 0
+    while it < max_outer and bool(gany_(((e > 0) & (d < _INF)).any())):
+        h = d
+        for _ in range(inner_iters):
+            _tally(stats, "push_cells", ((e > 0) & node).sum())
+            e, h = _push_phase(caps, e, h, shift=shift)
+        d = bfs()
+        it += 1
+    _finish_stats(stats, it)
+    return (d >= _INF) & node
+
+
 def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
                     excess0: torch.Tensor, node: torch.Tensor,
                     max_outer: int = 400, inner_iters: int = 30,
                     sweep_iters: int = 0, stats=None) -> torch.Tensor:
-    """Plain PyTorch solver (port of _mincut_core with the scan BFS).
-    The outer while_loop is a Python loop with one host sync per round.
+    """Plain PyTorch solver: _mincut_core with the scan BFS and the
+    identity shift and any.
 
     With a dict ``stats`` it also counts the work these inputs needed:
     ``outer`` rounds, ``push_cells`` (node cells holding positive excess
@@ -202,23 +276,8 @@ def grid_mincut_ref(cap_h: torch.Tensor, cap_v: torch.Tensor,
     H, W = cap_h.shape
     if sweep_iters <= 0:
         sweep_iters = H + W + 4
-    node = node.to(torch.bool)
-    caps, e = _init_state(cap_h, cap_v, excess0, node)
-
-    def bfs():
-        return _dist_to_sink_scan(caps, e < 0, node, sweep_iters, stats)
-
-    d = bfs()
-    it = 0
-    while it < max_outer and bool(((e > 0) & (d < _INF)).any()):
-        h = d
-        for _ in range(inner_iters):
-            _tally(stats, "push_cells", ((e > 0) & node).sum())
-            e, h = _push_phase(caps, e, h)
-        d = bfs()
-        it += 1
-    _finish_stats(stats, it)
-    return (d >= _INF) & node
+    return _mincut_core(cap_h, cap_v, excess0, node, max_outer, inner_iters,
+                        sweep_iters, stats=stats)
 
 
 def _finish_stats(stats, outer: int):

@@ -100,6 +100,14 @@ def _blur_multi(base: torch.Tensor, sigmas: List[float]) -> torch.Tensor:
     return F.conv2d(x, ks[:, None, :, None], groups=L)
 
 
+def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of one (H, W) image, replicate borders,
+    4 sigma each side (the JAX package's _blur)."""
+    if sigma <= 0:
+        return img
+    return _blur_multi(img[None], [sigma])[0, 0]
+
+
 def build_pyramid_batch(base: torch.Tensor, sigma: float, n_layers: int,
                         n_octaves: int) -> List[torch.Tensor]:
     """List over octaves of (N, L, H_o, W_o); the next octave's base is
@@ -112,6 +120,14 @@ def build_pyramid_batch(base: torch.Tensor, sigma: float, n_layers: int,
         octaves.append(oct_)
         cur = oct_[:, n_layers, ::2, ::2]
     return octaves
+
+
+def build_pyramid(base: torch.Tensor, sigma: float, n_layers: int,
+                  n_octaves: int) -> List[torch.Tensor]:
+    """Gaussian pyramid of one (H, W) image: list over octaves of
+    (L, H_o, W_o)."""
+    return [o[0] for o in build_pyramid_batch(base[None], sigma, n_layers,
+                                              n_octaves)]
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +504,44 @@ def _sift_from_pyramid(gauss, valid_hw, max_kp: int, n_layers: int,
     )
 
 
+def _upscaled_base(gray: torch.Tensor, sigma: float, upscale: bool):
+    """The first octave's base of an (N, H, W) grayscale batch: x2 linear
+    upscale (half-pixel centres, edge-clamped: the weights of
+    jax.image.resize(..., "linear") for an exact x2) and the blur up to
+    ``sigma``. Returns (base, first octave)."""
+    N, H, W = gray.shape
+    if upscale:
+        base = F.interpolate(gray[:, None], size=(H * 2, W * 2),
+                             mode="bilinear", align_corners=False)[:, 0]
+        sig_diff = math.sqrt(max(sigma * sigma - 4 * 0.25, 0.01))
+        first_octave = -1
+    else:
+        base = gray
+        sig_diff = math.sqrt(max(sigma * sigma - 0.25, 0.01))
+        first_octave = 0
+    return _blur_multi(base, [sig_diff])[:, 0], first_octave
+
+
+def extract_sift(img_gray: torch.Tensor, valid_hw: torch.Tensor,
+                 max_kp: int = 1024, n_layers: int = 4,
+                 contrast_thresh: float = 0.03, edge_thresh: float = 6.0,
+                 sigma: float = 1.4142, upscale: bool = True
+                 ) -> SiftFeatures:
+    """Detect and describe the SIFT features of one (H, W) float32
+    grayscale image on the 0..255 scale, whose content may fill only its
+    top-left ``valid_hw`` = (h, w). Returns SiftFeatures without the batch
+    dimension, in original-image pixel coordinates (not centre-shifted)."""
+    base, first_octave = _upscaled_base(img_gray.to(torch.float32)[None],
+                                        sigma, upscale)
+    n_oct = _num_octaves(base.shape[1], base.shape[2])
+    gauss = build_pyramid_batch(base, sigma, n_layers, n_oct)
+    hw = torch.as_tensor(valid_hw, device=img_gray.device).reshape(1, 2)
+    out = _sift_from_pyramid(gauss, hw,
+                             max_kp, n_layers, contrast_thresh, edge_thresh,
+                             sigma, first_octave)
+    return SiftFeatures(*(t[0] for t in out))
+
+
 def extract_sift_batch(imgs_u8: torch.Tensor, valid_hw: torch.Tensor,
                        max_kp: int = 1024, n_layers: int = 4,
                        contrast_thresh: float = 0.03,
@@ -500,19 +554,7 @@ def extract_sift_batch(imgs_u8: torch.Tensor, valid_hw: torch.Tensor,
     g = imgs_u8[..., 1].to(torch.float32)
     r = imgs_u8[..., 2].to(torch.float32)
     gray = 0.114 * b + 0.587 * g + 0.299 * r
-
-    if upscale:
-        # half-pixel-centre linear x2, edge-clamped: the same weights as
-        # jax.image.resize(..., "linear") for an exact x2 upscale
-        base = F.interpolate(gray[:, None], size=(H * 2, W * 2),
-                             mode="bilinear", align_corners=False)[:, 0]
-        sig_diff = math.sqrt(max(sigma * sigma - 4 * 0.25, 0.01))
-        first_octave = -1
-    else:
-        base = gray
-        sig_diff = math.sqrt(max(sigma * sigma - 0.25, 0.01))
-        first_octave = 0
-    base = _blur_multi(base, [sig_diff])[:, 0]
+    base, first_octave = _upscaled_base(gray, sigma, upscale)
     n_oct = _num_octaves(base.shape[1], base.shape[2])
     gauss = build_pyramid_batch(base, sigma, n_layers, n_oct)
     return _sift_from_pyramid(gauss, valid_hw, max_kp, n_layers,

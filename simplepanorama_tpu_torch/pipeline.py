@@ -21,9 +21,10 @@ import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from simplepanorama_tpu_torch.config import Config
+from simplepanorama_tpu_torch.utils.device import (  # noqa: F401
+    checked_device as _checked_device, full_precision)
 
 
 class StitchCancelled(RuntimeError):
@@ -71,21 +72,6 @@ class Progress:
             self._cb(self.fraction, self.text)
 
 
-def full_precision() -> None:
-    """Full float32 matmuls and convolutions (no TF32) on the GPU."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def _checked_device(device) -> torch.device:
-    """``device`` as a torch.device, with full float32 precision set; a
-    CUDA device with no GPU present raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' asked for, but no CUDA device "
-                           "is available")
-    full_precision()
-    return device
 
 
 def crop_roi(full: np.ndarray, preview_hw, roi) -> np.ndarray:

@@ -22,6 +22,7 @@ from simplepanorama_tpu_torch.ops.edt import distance_transform
 from simplepanorama_tpu_torch.render import projection as prj
 from simplepanorama_tpu_torch.render.blending import (
     multi_blend, no_blend, offs_list, simple_blend)
+from simplepanorama_tpu_torch.utils.device import checked_device
 
 
 @dataclasses.dataclass
@@ -40,7 +41,7 @@ class ComposeState:
 
 def warp_all(kind: str, scale: float, images: Sequence[np.ndarray],
              Rs, Ks, connectivity, dev_images=None,
-             device="cpu") -> ComposeState:
+             device="cuda") -> ComposeState:
     """Batched warp; blocks stay on ``device``.
 
     ``dev_images``: optional (batch_u8, rows) — the padded uint8 batch the
@@ -74,6 +75,7 @@ def warp_all(kind: str, scale: float, images: Sequence[np.ndarray],
         src = batch_u8[sel_rows].to(torch.float32)
         device = batch_u8.device
     else:
+        device = checked_device(device)
         Hs = max(im.shape[0] for im in images)
         Ws = max(im.shape[1] for im in images)
         imgs_b = np.zeros((n, Hs, Ws, 3), np.float32)
@@ -227,7 +229,14 @@ def _overlap_sums_dev(grays, msks, offs, canvas_hw):
 
 def blend_dev(method: str, state: ComposeState, imgs, bands: int,
               sigma: float) -> np.ndarray:
-    """Blend packed blocks -> uint8 numpy panorama (one transfer)."""
+    """Blend packed blocks -> uint8 numpy panorama (one transfer).
+
+    MULTI_BLEND is a sum over images, so in a world of several ranks it
+    takes the rank-sharded schedule (parallel/tiled_compose.py: band
+    pyramids split over the images, the canvas reduce-scattered by
+    columns). NO and SIMPLE composite in order and stay single-device."""
+    from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
+    mesh = pipeline_mesh()
     offs = state.offs
     msks_f = state.masks.to(torch.float32)
     if method == "NO_BLEND":
@@ -235,6 +244,13 @@ def blend_dev(method: str, state: ComposeState, imgs, bands: int,
         out = no_blend(imgs, use.to(torch.float32), offs, state.canvas_hw)
     elif method == "SIMPLE_BLEND":
         out = simple_blend(imgs, msks_f, offs, state.canvas_hw)
+    elif mesh is not None:
+        from simplepanorama_tpu_torch.parallel.tiled_compose import \
+            multi_blend_sharded
+        out = multi_blend_sharded(imgs, state.seam_masks.to(torch.float32),
+                                  msks_f, offs, state.canvas_hw, mesh,
+                                  bands=bands,
+                                  sigma=float(sigma))
     else:
         out = multi_blend(imgs, state.seam_masks.to(torch.float32), msks_f,
                           offs, state.canvas_hw, bands=bands,

@@ -173,15 +173,24 @@ def _pad_align(h: int, w: int):
 
 
 def render_full_dev(params, cfg: Config,
-                    full_images: Sequence[Optional[np.ndarray]]
-                    ) -> np.ndarray:
+                    full_images: Sequence[Optional[np.ndarray]],
+                    mesh=None, schedule: Optional[str] = None) -> np.ndarray:
     """Streaming re-render at full resolution on the device of the
-    preview's blocks (port of fullres.render_full_dev without its mesh
-    schedules).
+    preview's blocks (port of fullres.render_full_dev).
 
     ``params`` is the preview StitchParams (seam masks, intensity fields
     and gains are reused at full resolution, per return_full);
-    ``full_images`` the full-res BGR uint8 images in component order."""
+    ``full_images`` the full-res BGR uint8 images in component order.
+
+    MULTI_BLEND over a mesh (``mesh``, by default
+    parallel.mesh.pipeline_mesh(), None at one rank) takes a
+    schedule of parallel/tiled_compose.py: the images split over the ranks
+    (``schedule`` "dp", the default when there are at least as many
+    images as ranks) or the canvas ("canvas", only when asked for: at one
+    rank on an H100 it took 2.7 times the single-device render's wall and
+    peak memory). With fewer images than ranks and no ``schedule``, every
+    rank renders the whole panorama itself. NO_BLEND and SIMPLE_BLEND
+    composite in order and stay single-device."""
     res = params.res
     st = params.state
     dev = st.imgs.device
@@ -270,6 +279,40 @@ def render_full_dev(params, cfg: Config,
     # port's upload from pageable memory waits for the stream, and the
     # canvas does not depend on the chunking)
     G = int(max(1, min(m, _CHUNK_BUDGET // max(1, per_img))))
+
+    if method != "MULTI":
+        mesh = None
+    elif mesh is None:
+        from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
+        mesh = pipeline_mesh()
+    if mesh is not None and schedule is None and m < mesh.size:
+        mesh = None
+    if mesh is not None:
+        from simplepanorama_tpu_torch.parallel import tiled_compose as tc
+        rows = [row_of[i] for i in sel]
+        zeros = torch.zeros((m, 1, 1), dtype=torch.float32, device=dev)
+        src = np.zeros((m, Hs, Ws, 3), np.uint8)
+        for b, i in enumerate(sel):
+            h1, w1 = sizes_full[i]
+            src[b, :h1, :w1] = full_images[i]
+        args = dict(
+            Ka=Ka_b, R=R_b, corner=c_b, vhw=vhw_b, roi_wh=wh_b,
+            offs=np.asarray(off_b, np.int64),
+            seam_blks=(st.seam_masks[rows].to(torch.float32) if use_seam
+                       else zeros),
+            seam_ratios=sr_b,
+            field_blks=st.intensity[rows] if use_field else zeros,
+            field_ratios=fr_b, gains=g_b, scale=scale, kind=kind,
+            canvas_hw=(d.height, d.width), min_xy=(d.min_x, d.min_y),
+            bands=cfg.bands, sigma=float(cfg.sigma_blend),
+            use_seam=use_seam, use_field=use_field, mesh=mesh)
+        if schedule in (None, "dp"):
+            out = tc.fullres_multi_dp(src, (out_h, out_w), chunk=G, **args)
+        elif schedule == "canvas":
+            out = tc.fullres_multi_canvas(src, **args)
+        else:
+            raise ValueError(f"unknown full-res schedule {schedule!r}")
+        return out.cpu().numpy()
 
     color = torch.zeros((d.height + out_h, d.width + out_w, 3),
                         dtype=torch.float32, device=dev)

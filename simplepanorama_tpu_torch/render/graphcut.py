@@ -15,18 +15,30 @@ Per-pair cut graph (computeCut):
   t-links  = weight 5000 on the scene-mask contour (source) and on the
              element-mask contour (sink), restricted to the overlap.
 
-The solver is ops.maxflow.grid_mincut: the plain PyTorch push-relabel on
-CPU tensors, the CUDA kernel on the card. The canvas and scene mask stay
-on the device and are updated in place, image after image.
+Two incremental loops, as in the JAX package:
+  * ``graph_cut_state``, the device chain over the packed blocks: the
+    canvas and scene mask stay on the device and are updated in place,
+    image after image; every cut goes to ops.maxflow.grid_mincut_auto
+    (kernels 1 and 2 on the card). stitcher.set_config takes it on the
+    card.
+  * ``graph_cut``, the per-image host loop over the per-image crops, which
+    set_config takes on the CPU; its ``_solve_cut`` picks the solver: the
+    native Dinic (native.py) for CPU tensors, else grid_mincut_auto. In a
+    world of several ranks every rank holds the whole graph and solves it
+    itself: the column-sharded solver (parallel/dist_mincut.py) runs the
+    plain push-relabel's arithmetic as PyTorch ops, far slower than
+    kernels 1 and 2, so the seam finder never takes it.
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplepanorama_tpu_torch.geometry.canvas import get_pan_dimension
 from simplepanorama_tpu_torch.ops.maxflow import grid_mincut_auto
 
 _SEED_W = 5000.0
@@ -81,6 +93,79 @@ def _build_cut_graph(img1: torch.Tensor, img2: torch.Tensor,
     excess = _SEED_W * cont_scene.to(torch.float32) \
         - _SEED_W * (cont_elem & ~cont_scene).to(torch.float32)
     return wh, wv, excess, obj
+
+
+def _solve_cut(wh, wv, excess, obj, mask2):
+    """Min-cut dispatch (the JAX package's _solve_cut): the native Dinic
+    solver for CPU tensors (the reference's BK slot), else
+    grid_mincut_auto (kernel 1 or 2 on the card), in a world of any size.
+    A failed native build raises. Returns the element's cut mask: the
+    source side on the overlap, ``mask2`` elsewhere."""
+    if wh.device.type == "cpu":
+        from simplepanorama_tpu_torch.native import grid_mincut_native
+        side = torch.from_numpy(grid_mincut_native(wh, wv, excess, obj)[0])
+    else:
+        side = grid_mincut_auto(wh, wv, excess, obj)
+    return torch.where(obj, side, mask2 > 0)
+
+
+def graph_cut(images: Sequence, masks: Sequence,
+              corners: Sequence[Tuple[int, int]], seq: Sequence[int],
+              progress: Optional[Callable[[float], None]] = None,
+              cancelled: Optional[Callable[[], bool]] = None,
+              ) -> List[torch.Tensor]:
+    """Incremental graph-cut seams over the component's per-image crops
+    (the JAX package's host loop): ``images`` (h_i, w_i, 3) on the 0..255
+    scale and ``masks`` (h_i, w_i), tensors on one device or numpy (the
+    CPU), ``corners`` their (tl_x, tl_y), ``seq`` the BA insertion order.
+    One solve per image after the first (_solve_cut), each read back
+    before the next. Returns one bool seam mask per image, same shapes,
+    on the images' device."""
+    dev = images[0].device if torch.is_tensor(images[0]) else \
+        torch.device("cpu")
+    T = lambda a: torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
+                                  else a, device=dev)
+    sizes = [tuple(im.shape[:2]) for im in images]
+    d = get_pan_dimension(corners, sizes)
+    pano = torch.zeros((d.height, d.width), dtype=torch.float32, device=dev)
+    scene = torch.zeros((d.height, d.width), dtype=torch.bool, device=dev)
+    grays = [_gray_batch(T(im).to(torch.float32)) for im in images]
+    rois = [(ty - d.min_y, tx - d.min_x) for tx, ty in corners]
+    out = [T(m) > 0 for m in masks]
+
+    first = seq[0]
+    (y0, x0), (h, w) = rois[first], sizes[first]
+    m0 = out[first]
+    pano[y0:y0 + h, x0:x0 + w] = torch.where(m0, grays[first],
+                                             pano[y0:y0 + h, x0:x0 + w])
+    scene[y0:y0 + h, x0:x0 + w] |= m0
+    n = max(1, len(seq) - 1)
+    for s in seq[1:]:
+        if cancelled is not None and cancelled():
+            raise RuntimeError("Process canceled")
+        (y0, x0), (h, w) = rois[s], sizes[s]
+        pano_roi = pano[y0:y0 + h, x0:x0 + w]
+        scene_roi = scene[y0:y0 + h, x0:x0 + w]
+        m2 = out[s].to(torch.float32) * 255.0
+        cut = _solve_cut(*_build_cut_graph(
+            pano_roi, grays[s], scene_roi.to(torch.float32) * 255.0, m2), m2)
+        out[s] = cut
+        pano[y0:y0 + h, x0:x0 + w] = torch.where(cut, grays[s], pano_roi)
+        scene[y0:y0 + h, x0:x0 + w] = scene_roi | cut
+        if progress is not None:
+            progress(1.0 / n)
+
+    # mutual exclusion: ownership by the latest covering image in seq
+    owner = torch.full((d.height, d.width), -1, dtype=torch.int64,
+                       device=dev)
+    for s in seq:
+        (y0, x0), (h, w) = rois[s], sizes[s]
+        region = owner[y0:y0 + h, x0:x0 + w]
+        region[out[s]] = s
+    for s in seq:
+        (y0, x0), (h, w) = rois[s], sizes[s]
+        out[s] = out[s] & (owner[y0:y0 + h, x0:x0 + w] == s)
+    return out
 
 
 def _cut_step(canvas_g, scene, gray_b, mask_b, off: Tuple[int, int]):

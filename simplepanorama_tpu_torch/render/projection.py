@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplepanorama_tpu_torch.utils.device import checked_device
+
 
 def _forward_spherical(x, y, z, xp):
     u = xp.arctan2(x, z)
@@ -122,6 +124,54 @@ def _source_coords(K_adj, R, corner, scale, kind, yy, xx, valid_hw):
     return sx, sy, inb
 
 
+def _bilinear(sample, sx, sy, inb, H: int, W: int):
+    """Bilinear interpolation at (sx, sy) with taps clamped into the
+    image; ``sample(lin)`` returns the float32 (..., C) pixels at flat
+    indices ``lin``. Zero outside ``inb``."""
+    x0 = torch.clamp(torch.floor(sx), 0, W - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(sy), 0, H - 2).to(torch.int64)
+    fx = torch.clamp(sx - x0, 0.0, 1.0)[..., None]
+    fy = torch.clamp(sy - y0, 0.0, 1.0)[..., None]
+    lin = y0 * W + x0
+    v00, v01 = sample(lin), sample(lin + 1)
+    v10, v11 = sample(lin + W), sample(lin + W + 1)
+    out = ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
+           + (v10 * (1 - fx) + v11 * fx) * fy)
+    return torch.where(inb[..., None], out, torch.zeros_like(out))
+
+
+def warp_from_grid(img, K_adj, R, corner, scale, kind: str, yy, xx,
+                   valid_hw):
+    """Backward-map warp over any destination grid: ``yy``, ``xx`` are
+    canvas-ROI pixel coordinates of the same shape. warp_backward calls it
+    with the whole ROI; the canvas-sharded render
+    (parallel/tiled_compose.py) with each rank's slab of canvas columns.
+    ``img`` is (H, W, C) float32. Returns (warped (..., C), in-bounds
+    mask)."""
+    sx, sy, inb = _source_coords(K_adj, R, corner, scale, kind, yy, xx,
+                                 valid_hw)
+    H, W, C = img.shape
+    flat = img.reshape(H * W, C)
+    return _bilinear(lambda lin: flat[lin], sx, sy, inb, H, W), inb
+
+
+def warp_from_grid_u8(img_u8, K_adj, R, corner, scale, kind: str, yy, xx,
+                      valid_hw):
+    """warp_from_grid of a uint8 source, sampling its taps as uint8 (no
+    float32 copy of the source). uint8 values are exact in float32, so
+    this equals warp_from_grid on img_u8.to(float32). (The JAX package
+    packs each 2x2 neighbourhood into uint32 lanes so that a sample is one
+    TPU gather row; a CUDA gather has no such cost, and the port gathers
+    the four taps.)"""
+    sx, sy, inb = _source_coords(K_adj, R, corner, scale, kind, yy, xx,
+                                 valid_hw)
+    H, W, C = img_u8.shape
+    flat = img_u8.reshape(H * W, C)
+    out = _bilinear(lambda lin: flat[lin].to(torch.float32), sx, sy, inb,
+                    H, W)
+    return out, inb
+
+
 def warp_backward(img, K_adj, R, corner, scale, kind: str, out_h: int,
                   out_w: int, valid_hw):
     """Backward-map warp of one (H, W, C) image into its padded
@@ -132,21 +182,8 @@ def warp_backward(img, K_adj, R, corner, scale, kind: str, out_h: int,
         .expand(out_h, out_w)
     xx = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :] \
         .expand(out_h, out_w)
-    sx, sy, inb = _source_coords(K_adj, R, corner, scale, kind, yy, xx,
-                                 valid_hw)
-    H, W, C = img.shape
-    x0 = torch.clamp(torch.floor(sx), 0, W - 2).to(torch.int64)
-    y0 = torch.clamp(torch.floor(sy), 0, H - 2).to(torch.int64)
-    fx = torch.clamp(sx - x0, 0.0, 1.0)[..., None]
-    fy = torch.clamp(sy - y0, 0.0, 1.0)[..., None]
-    flat = img.reshape(H * W, C)
-    lin = y0 * W + x0
-    v00, v01 = flat[lin], flat[lin + 1]
-    v10, v11 = flat[lin + W], flat[lin + W + 1]
-    out = ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
-           + (v10 * (1 - fx) + v11 * fx) * fy)
-    out = torch.where(inb[..., None], out, torch.zeros_like(out))
-    return out, inb
+    return warp_from_grid(img, K_adj, R, corner, scale, kind, yy, xx,
+                          valid_hw)
 
 
 def warp_backward_batch(imgs, K_adjs, Rs, corners, scale, kind: str,
@@ -192,10 +229,11 @@ def get_proj_parameters(kind: str, scale: float,
                         Rs: Sequence[np.ndarray],
                         Ks: Sequence[np.ndarray],
                         connectivity: Sequence[float],
-                        device="cpu") -> ProjData:
+                        device="cuda") -> ProjData:
     """Warp every connected image on ``device`` (proj::get_proj_parameters,
     _projection.cpp:422-454). Images are BGR uint8 or float; output floats
     keep the input scale."""
+    device = checked_device(device)
     sel = [i for i in range(len(images)) if connectivity[i] > 0]
     rois = {}
     for i in sel:

@@ -34,6 +34,7 @@ from simplepanorama_tpu_torch.geometry import rotation as rotn
 from simplepanorama_tpu_torch.geometry.graph import (
     Component, order_nodes_by_connection)
 from simplepanorama_tpu_torch.ops import ba_kernel
+from simplepanorama_tpu_torch.utils.device import checked_device
 
 
 @dataclasses.dataclass
@@ -49,11 +50,32 @@ class StitchResult:
     sizes: List[Tuple[int, int]]  # (h, w) per local node
 
 
+# Matches per rank from which, in a world of several ranks, the BA splits
+# its matches across the ranks (parallel.dist_ba). Below it every rank
+# runs the whole BA itself, on the card as CUDA graphs, with the same
+# result. The split trial runs eagerly, with collectives: on an H100 that
+# is 20-37 ms a trial against a graph's 2-3 ms, so the split pays only
+# where the matches' own work in a trial, divided by the ranks, saves
+# more. At 6,144 matches kernel 3 takes 16-23 us and the whole graphed
+# trial 2-3 ms, which puts the crossover between ~40 thousand and ~6
+# million matches per rank at two ranks; no multi-card run has measured
+# it, and this is a point between the two.
+BA_SHARD_MIN_MATCHES = 1 << 19
+
+
+def _ba_mesh(mesh, n_matches: int):
+    """The mesh the BA splits ``n_matches`` matches over, or None (every
+    rank runs the whole BA)."""
+    if mesh is None or n_matches < BA_SHARD_MIN_MATCHES * mesh.size:
+        return None
+    return mesh
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def build_ba_data(comp: Component, adjres: Adjacency, device="cpu",
+def build_ba_data(comp: Component, adjres: Adjacency, device="cuda",
                   cap_round: int = 512,
                   order: Optional[List[Tuple[int, int]]] = None,
                   relabel: Optional[np.ndarray] = None,
@@ -61,6 +83,7 @@ def build_ba_data(comp: Component, adjres: Adjacency, device="cpu",
     """Flatten the component's directed cleaned matches into padded
     tables on ``device``; with ``order``, matches are sorted by activation
     step and prefix[l] = matches active after addition l."""
+    device = checked_device(device)
     nodes = comp.nodes
     g2l = {g: l for l, g in enumerate(nodes)}
     mi, mj, q, t, step = [], [], [], [], []
@@ -120,9 +143,11 @@ def build_ba_data(comp: Component, adjres: Adjacency, device="cpu",
     return data, prefix
 
 
-def _chunk_plan(prefix: np.ndarray, L: int, n_pad: int, Mcap: int):
+def _chunk_plan(prefix: np.ndarray, L: int, n_pad: int, Mcap: int,
+                m_round: int = 2048):
     """Equal-work chunks of additions [lo, hi) with their capacity buckets
-    (n_cap, m_cap), as stitch.bundle_adjust_stitching plans them."""
+    (n_cap, m_cap), as stitch.bundle_adjust_stitching plans them: matches
+    rounded to ``m_round``, cameras to 8."""
     n_chunks = min(10, L - 1)
     w = prefix[1:L].astype(np.float64) + 3000.0
     cw = np.cumsum(w)
@@ -135,7 +160,7 @@ def _chunk_plan(prefix: np.ndarray, L: int, n_pad: int, Mcap: int):
     chunks = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         n_cap = min(n_pad, _round_up(hi, 8))
-        m_cap = min(Mcap, _round_up(max(int(prefix[hi - 1]), 1), 2048))
+        m_cap = min(Mcap, _round_up(max(int(prefix[hi - 1]), 1), m_round))
         chunks.append((lo, hi, n_cap, m_cap))
     return chunks
 
@@ -182,13 +207,15 @@ class LMCounts(NamedTuple):
 def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
               data_c: ba.BAData, lo: int, hi: int, order_conns, H_pair,
               vaug, lambda0: float, fast: bool,
-              program: Optional[ba.LMProgram] = None, ws=None):
+              program: Optional[ba.LMProgram] = None, ws=None,
+              group=None):
     """Additions [lo, hi) of the schedule at one capacity bucket: each
     activates its camera (eagerly, with the SVD of its rotation init),
     then runs LM over the active set, through ``program`` (the bucket's
     CUDA graph) or as eager trials (with the kernel scratch ``ws`` on the
-    card). ``active_c`` is updated in place. Returns (cams, LMCounts);
-    the counts stay on the device."""
+    card; with a process ``group``, over this rank's share of the
+    matches, parallel.dist_ba). ``active_c`` is updated in place. Returns
+    (cams, LMCounts); the counts stay on the device."""
     dev = cams_c.focal.device
     trials = torch.zeros((), dtype=torch.int64, device=dev)
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -206,7 +233,7 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
         else:
             res, n, r = ba.lm_run_eager(cams_c, data_c, active_c, lambda0,
                                         fast=fast, vaug_idx=int(vaug[l]),
-                                        ws=ws)
+                                        ws=ws, group=group)
         cams_c = res.cams
         trials = trials + res.n_iter
         accepted = accepted + res.n_accepted
@@ -222,14 +249,28 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                             cfg: Config,
                             progress: Optional[Callable[[float], None]] = None,
                             cancelled: Optional[Callable[[], bool]] = None,
-                            device="cpu", fused: bool = True) -> StitchResult:
+                            device="cuda", fused: bool = True) -> StitchResult:
     """Run the incremental BA over one connected component; ``sizes`` are
     (h, w) of the global image list, ``focal`` the scene estimate.
     ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
     each chunk of the schedule as its bucket's CUDA graph, replayed, on
     the card (ba.LMProgram; the graphs live for this call);
     ``fused=False``, and every run on the CPU, runs the same trial
-    eagerly. Progress and cancellation are per chunk."""
+    eagerly. Progress and cancellation are per chunk. ``device`` is the
+    card unless the caller asks for another.
+
+    In a world of several ranks (parallel.mesh.pipeline_mesh) with at
+    least BA_SHARD_MIN_MATCHES matches per rank, the matches of every
+    chunk are split across the ranks and its trials run eagerly with the
+    camera system all-reduced (parallel.dist_ba): match capacity then
+    rounds to 512 per rank, so every rank's share suits kernel 3, and b is
+    gathered back after each chunk. With fewer, every rank runs the whole
+    BA as on one device. Every rank ends with the same result."""
+    from simplepanorama_tpu_torch.parallel.mesh import (
+        pipeline_mesh, shard_matches, unshard_matches)
+    device = checked_device(device)
+    mesh = pipeline_mesh()
+    world = 1 if mesh is None else mesh.size
     nodes = comp.nodes
     n = len(nodes)
     order = order_nodes_by_connection(comp.adj + comp.adj.T)
@@ -256,8 +297,10 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     inv[perm] = np.arange(n)
 
     data, prefix = build_ba_data(comp, adjres, device=device, order=order,
-                                 relabel=inv)
+                                 relabel=inv, cap_round=512 * world)
     Mcap = int(data.mi.shape[0])
+    mesh = _ba_mesh(mesh, Mcap)
+    world = 1 if mesh is None else mesh.size
     if prefix is None:
         prefix = np.zeros(L, np.int64)
     order_conns = [int(inv[max(o[1], 0)]) for o in order]
@@ -280,7 +323,9 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     on_card = torch.device(device).type == "cuda"
     programs = {}   # (n_cap, m_cap) -> ba.LMProgram, for this call only
     try:
-        for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap):
+        m_round = int(np.lcm(2048, 512 * world))
+        for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap,
+                                                m_round):
             sl = lambda x: x[:m_cap]
             data_c = ba.BAData(mi=sl(data.mi), mj=sl(data.mj), q=sl(data.q),
                                t=sl(data.t), m_valid=sl(data.m_valid),
@@ -289,7 +334,12 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                                  cams.rotvec[:n_cap], sl(cams.b))
             active_c = active[:n_cap].clone()
             program = ws = None
-            if on_card and fused:
+            if mesh is not None:
+                data_c = shard_matches(data_c, mesh)
+                cams_c = cams_c._replace(b=cams_c.b[mesh.rank::world])
+                if on_card:
+                    ws = ba_kernel.workspace(m_cap // world, n_cap, device)
+            elif on_card and fused:
                 program = programs.get((n_cap, m_cap))
                 if program is None:
                     program = programs[n_cap, m_cap] = ba.LMProgram(
@@ -299,7 +349,10 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
                                   order_conns, H_pair, vaug,
                                   float(cfg.lambda_), bool(cfg.fast),
-                                  program, ws)
+                                  program, ws,
+                                  None if mesh is None else mesh.group)
+            if mesh is not None:
+                cams_c = cams_c._replace(b=unshard_matches(cams_c.b, mesh))
             cams = ba.CamState(
                 focal=torch.cat([cams_c.focal, cams.focal[n_cap:]]),
                 ppal=torch.cat([cams_c.ppal, cams.ppal[n_cap:]]),

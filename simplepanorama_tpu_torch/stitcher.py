@@ -130,10 +130,22 @@ def set_config(res: StitchResult, images: Sequence[np.ndarray], cfg: Config,
     if cfg.cut:
         seq = [n for n, _ in res.order]
         with stage("graph_cut"):
-            # the device chain on every device: the canvas stays resident
-            # and each image's cut feeds the next
-            st.seam_masks = graphcut.graph_cut_state(
-                st, seq, progress=progress, cancelled=cancelled)
+            if st.imgs.device.type == "cpu":
+                # the host loop with the native Dinic solver, as the JAX
+                # package runs on its CPU backend
+                from simplepanorama_tpu_torch.render.blending import \
+                    pad_stack
+                imgs_l, masks_l, corners_l = params._lists()
+                seams_l = graphcut.graph_cut(
+                    imgs_l, masks_l, corners_l, seq, progress=progress,
+                    cancelled=cancelled)
+                st.seam_masks = pad_stack(seams_l, st.masks.shape[1:],
+                                          st.masks.device) > 0
+            else:
+                # the device chain: the canvas stays resident and each
+                # image's cut feeds the next (kernels 1 and 2)
+                st.seam_masks = graphcut.graph_cut_state(
+                    st, seq, progress=progress, cancelled=cancelled)
     elif cfg.blend == Blending.MULTI_BLEND or cfg.cut_seams:
         with stage("dist_cut"):
             st.seam_masks = compose.dist_cut_dev(st.masks, st.offs,
@@ -357,7 +369,10 @@ def run_pipeline(images, cfg: Config, progress=None, cancel_token=None,
     if progress is not None:
         progress.set(4 / 6, "Projecting Images...")
     comp_imgs = [images.img_data[g] for g in res.nodes]
-    dev_images = (feats.device_images, list(res.nodes))
+    # (in a world of several ranks the pixels stay with the rank that
+    # extracted them, and the warp uploads the images)
+    dev_images = None if feats.device_images is None else \
+        (feats.device_images, list(res.nodes))
     with stage("compositing"):
         params = set_config(res, comp_imgs, cfg,
                             progress=lambda d: prog(d / 3.0),

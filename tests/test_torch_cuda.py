@@ -257,7 +257,8 @@ def test_radial_remap_card_matches_cpu(cuda, tmp_path):
     Ks = [np.array([[f, 0, 150], [0, f, 150], [0, 0, 1.0]])] * 12
     Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
                     [-np.sin(a), 0, np.cos(a)]]) for a in np.radians(yaws)]
-    st = compose.warp_all("stereographic", f, imgs, Rs, Ks, [1.0] * 12)
+    st = compose.warp_all("stereographic", f, imgs, Rs, Ks, [1.0] * 12,
+                          device="cpu")
     lists = [[st.imgs[b, :rh, :rw] for b, (_, _, rw, rh) in
               enumerate(st.rois)],
              [st.masks[b, :rh, :rw] for b, (_, _, rw, rh) in
@@ -469,3 +470,191 @@ def test_replays_do_not_grow_memory(cuda, slice1_ba):
         assert torch.isfinite(prog.st.err)
     finally:
         prog.close()
+
+
+# ---------------------------------------------------------------- world 1
+
+
+@pytest.fixture(scope="module")
+def world1(tmp_path_factory):
+    """A world of one rank over NCCL on cuda:0, through a FileStore, and
+    its mesh; the process group is destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    import torch.distributed as dist
+    from simplepanorama_tpu_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"),
+                           1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ba_problem_card(n_cams=4, M=512, seed=2):
+    """tests/test_parallel.py's BA problem, on the card."""
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.stitch import _rodrigues_np
+    rng = np.random.default_rng(seed)
+    f = 700.0
+    rv = [np.array([0.0, 0.2 * i, 0.01 * i]) for i in range(n_cams)]
+    K = np.diag([f, f, 1.0])
+    mi = rng.integers(0, n_cams - 1, M)
+    mj = mi + 1
+    t = rng.uniform(-200, 200, (M, 2)).astype(np.float32)
+    q = np.zeros_like(t)
+    for m in range(M):
+        H = K @ _rodrigues_np(rv[mi[m]]).T @ _rodrigues_np(rv[mj[m]]) \
+            @ np.linalg.inv(K)
+        p = H @ np.array([t[m, 0], t[m, 1], 1.0])
+        q[m] = p[:2] / p[2]
+    T = lambda a: torch.as_tensor(a, device="cuda")
+    data = ba.with_pair_tables(ba.BAData(
+        mi=T(mi), mj=T(mj), q=T(q), t=T(t),
+        m_valid=torch.ones(M, dtype=torch.bool, device="cuda"),
+        pi=None, pj=None, mp=None))
+    rot0 = np.stack([np.zeros(3)] + [r + 0.02 for r in rv[1:]])
+    cams = ba.CamState(T(np.full(n_cams, f * 1.05, np.float32)),
+                       T(np.zeros((n_cams, 2), np.float32)),
+                       T(rot0.astype(np.float32)), data.t.clone())
+    return cams, data
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
+    """ba.lm_trial with the mesh's process group (the match-sharded
+    trial: kernel 3 on this rank's matches, the camera system and the
+    error all-reduced over NCCL) against the trial without one, at world
+    1 on the card: every state tensor equal, bit for bit (a sum over one
+    rank is the identity), with kernel 3 launched once in the sharded
+    trial; then 12 trials of lm_run_sharded against ba.lm_run_eager, the
+    same bits again."""
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.parallel.dist_ba import lm_run_sharded
+    cams, data = _ba_problem_card()
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    out = {}
+    for name, group in (("plain", None), ("sharded", world1.group)):
+        pb = ba.lm_problem(data, active, group=group)
+        st = ba.lm_init(cams, pb, 0.05, fast)
+        before = ba_kernel.assemble_streams.launches
+        with ba._device_trials(True):
+            out[name] = ba.lm_trial(st, pb, fast)
+        torch.cuda.synchronize()
+        assert ba_kernel.assemble_streams.launches == before + 1
+    for a, b in zip(*(list(out[k].cams) + list(out[k][1:])
+                      for k in ("plain", "sharded"))):
+        assert torch.equal(a, b)
+    r_e = ba.lm_run_eager(cams, data, active, 0.05, fast=fast,
+                          max_iter=12)[0]
+    r_s = lm_run_sharded(cams, data, active, 0.05, world1, fast=fast,
+                         max_iter=12)
+    for a, b in zip(r_e.cams, r_s.cams):
+        assert torch.equal(a, b)
+    assert torch.equal(r_e.error, r_s.error)
+    assert int(r_e.n_iter) == int(r_s.n_iter) == 12
+
+
+def test_halo_exchange_world_1_fills_both_ends(world1):
+    """At world 1 the slab has no neighbour: halo_exchange pads both ends
+    with ``fill`` and keeps the slab."""
+    from simplepanorama_tpu_torch.parallel.tiled_compose import \
+        halo_exchange
+    x = torch.arange(32, dtype=torch.float32, device="cuda").reshape(4, 8)
+    out = halo_exchange(x, 2, world1, fill=-1.0)
+    assert out.shape == (4, 12) and out.device.type == "cuda"
+    assert torch.equal(out[:, 2:10], x)
+    assert bool((out[:, :2] == -1).all() and (out[:, 10:] == -1).all())
+
+
+def _host_loop_inputs():
+    """Three overlapping blocks for the seam finder: (images, masks,
+    offsets (y, x)), numpy."""
+    rng = np.random.default_rng(3)
+    n, Hb, Wb = 3, 48, 128
+    imgs = rng.uniform(0, 255, (n, Hb, Wb, 3)).astype(np.float32)
+    masks = np.zeros((n, Hb, Wb), bool)
+    offs = np.array([[0, 0], [10, 60], [20, 120]], np.int32)
+    for i in range(n):
+        masks[i, 1:39 + i, 1:99 + 5 * i] = True
+    return imgs, masks, offs
+
+
+def _host_loop(imgs, masks, offs):
+    """render/graphcut.graph_cut on the card over _host_loop_inputs."""
+    T = lambda a: torch.as_tensor(a, device="cuda")
+    return graphcut.graph_cut([T(im) for im in imgs], [T(m) for m in masks],
+                              [(int(x), int(y)) for y, x in offs],
+                              [0, 1, 2])
+
+
+def test_graph_cut_host_loop_launches_kernel_1(world1):
+    """render/graphcut.graph_cut (the host loop) on CUDA tensors in a
+    world of one rank: _solve_cut takes grid_mincut_auto, so kernel 1 is
+    launched once per cut; the seams match those of the device chain
+    (graph_cut_state) on the same blocks on >= 99.9% of each block."""
+    imgs, masks, offs = _host_loop_inputs()
+    T = lambda a: torch.as_tensor(a, device="cuda")
+    before = maxflow.grid_mincut.launches
+    seams = _host_loop(imgs, masks, offs)
+    assert maxflow.grid_mincut.launches == before + 2
+    st = ComposeState(imgs=T(imgs), masks=T(masks), offs=T(offs), rois=[],
+                      canvas_hw=(80, 256), min_xy=(0, 0))
+    chain = graphcut.graph_cut_state(st, [0, 1, 2]).cpu().numpy()
+    for s, c in zip(seams, chain):
+        assert s.device.type == "cuda"
+        assert (s.cpu().numpy() == c).mean() >= 0.999
+
+
+_HOST_LOOP_WORKER = """
+import os
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from simplepanorama_tpu_torch.ops import maxflow
+from simplepanorama_tpu_torch.parallel.mesh import pipeline_mesh
+sys.path.insert(0, os.path.join(sys.argv[1], "tests"))
+from test_torch_cuda import _host_loop, _host_loop_inputs
+
+# gloo, so that both ranks may share one card (NCCL takes a card a rank)
+dist.init_process_group(
+    "gloo", init_method="tcp://" + os.environ["SPT_COORDINATOR"],
+    world_size=int(os.environ["SPT_NUM_PROCS"]),
+    rank=int(os.environ["SPT_PROC_ID"]))
+mesh = pipeline_mesh()
+assert mesh is not None and mesh.size == 2
+torch.cuda.set_device(0)
+seams = _host_loop(*_host_loop_inputs())
+torch.cuda.synchronize()
+np.save(sys.argv[2] % mesh.rank, np.stack([s.cpu().numpy() for s in seams]))
+print("launches", maxflow.grid_mincut.launches,
+      maxflow.grid_mincut_tiled.launches, flush=True)
+dist.destroy_process_group()
+"""
+
+
+def test_graph_cut_host_loop_launches_kernel_1_in_world_of_2(cuda,
+                                                             tmp_path):
+    """The host loop on CUDA tensors in a world of 2 ranks (gloo, both
+    ranks on card 0): each rank solves its whole graphs with kernel 1,
+    once per cut (2 cuts, no kernel-2 launch), and its seams equal, bit
+    for bit, those of the host loop in this process, which has no
+    world."""
+    import os
+    from simplepanorama_tpu_torch.parallel.launch import run_world
+    want = np.stack([s.cpu().numpy()
+                     for s in _host_loop(*_host_loop_inputs())])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_HOST_LOOP_WORKER)
+    outs = run_world([str(script), repo, str(tmp_path / "seams%d.npy")], 2,
+                     timeout_s=300, cwd=repo)
+    for rank, (rc, log) in enumerate(outs):
+        assert rc == 0, f"rank {rank} failed:\n{log[-3000:]}"
+        assert "launches 2 0" in log, log[-3000:]
+        np.testing.assert_array_equal(
+            np.load(tmp_path / f"seams{rank}.npy"), want)

@@ -412,7 +412,7 @@ def warped():
     """JAX warp_all of the two views, and the port's."""
     imgs, Ks, Rs, f = _views()
     sj = jcomp.warp_all("spherical", f, imgs, Rs, Ks, [1, 1])
-    st = tcomp.warp_all("spherical", f, imgs, Rs, Ks, [1, 1])
+    st = tcomp.warp_all("spherical", f, imgs, Rs, Ks, [1, 1], device="cpu")
     return sj, st
 
 
@@ -526,8 +526,8 @@ def test_set_config_on_jax_result_matches_jax(cut):
     StitchResult (the port's copy made by stitch_result_from_numpy): the
     compositing half of the pipeline without RANSAC or BA in the way.
     cut=False is the default config (distance-transform seams); cut=True
-    the graph cut, for which the JAX package runs its host Dinic solver
-    on the CPU and the port its push-relabel, and a min cut may tie.
+    the graph cut, for which both packages run the host Dinic solver on
+    the CPU, and a min cut may tie.
     Tolerance: same preview shape, NCC >= 0.999 (measured 1 - 6e-9 for
     both; no pixel differs by more than 1 level)."""
     imgs, Ks, Rs, f = _views()
@@ -545,3 +545,41 @@ def test_set_config_on_jax_result_matches_jax(cut):
     b = prev_t.astype(np.float64).ravel() - prev_t.mean()
     ncc = (a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum())
     assert ncc >= 0.999
+
+
+# ---------------------------------------------------------------- helpers
+
+
+def test_model_homography_and_pair_tables_match_jax():
+    """ba.model_homography and ba.with_pair_tables on _ba_problem's
+    tables. Tolerance: H within 1e-5 relative of the JAX package's
+    (float32, the same chain); the pair tables equal."""
+    data, rot0, f = _ba_problem()
+    cams_j = jba.CamState(focal=jnp.full((4,), f, jnp.float32),
+                          ppal=jnp.zeros((4, 2), jnp.float32),
+                          rotvec=jnp.asarray(rot0), b=data.t)
+    cams_t = tba.CamState(torch.full((4,), f), torch.zeros((4, 2)),
+                          torch.from_numpy(rot0), torch.zeros((1, 2)))
+    for i, j in ((0, 1), (2, 1), (3, 0)):
+        Hj = np.asarray(jba.model_homography(cams_j, i, j))
+        Ht = tba.model_homography(cams_t, i, j).numpy()
+        np.testing.assert_allclose(Ht, Hj, rtol=1e-5, atol=1e-5 * abs(Hj).max())
+    data_t = tba.with_pair_tables(tba.BAData(
+        mi=torch.as_tensor(np.array(data.mi), dtype=torch.int64),
+        mj=torch.as_tensor(np.array(data.mj), dtype=torch.int64),
+        q=torch.as_tensor(np.array(data.q)),
+        t=torch.as_tensor(np.array(data.t)),
+        m_valid=torch.as_tensor(np.array(data.m_valid)),
+        pi=None, pj=None, mp=None))
+    for k in ("pi", "pj", "mp"):
+        np.testing.assert_array_equal(getattr(data_t, k).numpy(),
+                                      np.asarray(getattr(data, k)))
+
+
+def test_normalize_2d_matches_jax():
+    """homography.normalize_2d on random points, within 1e-5 relative."""
+    pts = np.random.default_rng(3).uniform(-300, 300, (40, 2)) \
+        .astype(np.float32)
+    np.testing.assert_allclose(
+        thom.normalize_2d(torch.from_numpy(pts)).numpy(),
+        np.asarray(jhom.normalize_2d(jnp.asarray(pts))), rtol=1e-5)

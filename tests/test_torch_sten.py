@@ -92,7 +92,8 @@ def warped(loop):
              [mk[b, :rh, :rw] for b, (_, _, rw, rh) in enumerate(st.rois)],
              [(r[0], r[1]) for r in st.rois])
     return lists, tcomp.warp_all("stereographic", f, imgs, list(res.rot),
-                                 list(res.K), list(res.connectivity))
+                                 list(res.K), list(res.connectivity),
+                                 device="cpu")
 
 
 @pytest.fixture(scope="module")
