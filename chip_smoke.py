@@ -38,7 +38,11 @@ Phases, each printing one line per input:
   slice2  a 12-view loop of 2800-px views through
           Panorama(paths, device="cuda").stitch(Config(cut=True,
           init_size=1400, gain_compensation=True)), then get_preview()
-          and get_panorama() (the full-res render), launches counted;
+          and get_panorama() (the full-res render), launches counted:
+          get_panorama joins the full-res prefetch that stitch() started
+          (decode and upload under the preview); then the same render
+          through the synchronous path and through a second prefetch, in
+          turns, equal bit for bit, with their walls;
   slice3  a 12-view loop of 1400-px views through the CLI, as a user runs
           it: cli.main([dir, "--fast", "--timing", "--save-state", ...])
           (Lowe objective, default compositing), then cli.main(
@@ -51,9 +55,11 @@ Phases, each printing one line per input:
           _schur_solve_system), which is also timed, as computed and in
           the Jacobi scaling of the solve;
   dist    the multi-device layer (parallel/) at world 1 over NCCL, in
-          this process: the match-sharded LM (lm_run_sharded, kernel 3
-          on the rank's matches) against ba.lm_run_eager on the BA
-          problems of slices 1 and 3, bit for bit; multi_blend_sharded on
+          this process: the match-sharded LM (lm_run_sharded: one CUDA
+          graph a trial with its all-reduces inside, kernel 3 on the
+          rank's matches) against the same LM run eagerly and the
+          single-card graph and eager runs on the BA problems of slices
+          1 and 3, bit for bit; multi_blend_sharded on
           slice 2's blocks; the image-split and canvas-split full-res
           schedules against slice 2's single-device render; the
           column-sharded min-cut on slice 1's first seam graph against
@@ -62,8 +68,9 @@ Phases, each printing one line per input:
           blocks on the card: kernel 1 once per cut, seams against the
           device chain's;
   two_card with two or more cards, slice 2 in a world of 2 ranks over
-          NCCL (one process a card) against the single-card run; with
-          one card a line says it was skipped;
+          NCCL (one process a card; its BA splits the matches, each
+          bucket's trial a CUDA graph with its all-reduces) against the
+          single-card run; with one card a line says it was skipped;
   ba      the BA problems of slice 1 (relaxed) and slice 3 (Lowe) again
           through stitch.bundle_adjust_stitching, fused=False (eager
           trials) and fused=True (each bucket's trial a CUDA graph) in
@@ -1040,13 +1047,18 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
     """The multi-device layer (simplepanorama_tpu_torch/parallel/) at
     world 1 over NCCL on cuda:0, in this process (a FileStore in ``tmp``),
     at full width:
-      * parallel.dist_ba.lm_run_sharded against ba.lm_run_eager on each of
-        ``ba_problems`` {name: (cams, data, active, fast, lambda)} (the BA
-        problems of slices 1 and 3 as _slice3_ba_problem builds them,
-        started from _perturbed cameras, 50 trials at most, kernel 3's
-        workspace made once): trials, accepted steps and every camera
-        tensor equal bit for bit (an all-reduce over one rank is the
-        identity), kernel 3 launched once per trial executed;
+      * parallel.dist_ba.lm_run_sharded, the path: each trial one CUDA
+        graph holding its two NCCL all-reduces (ba.LMProgram with the
+        mesh's group), on each of ``ba_problems`` {name: (cams, data,
+        active, fast, lambda)} (the BA problems of slices 1 and 3 as
+        _slice3_ba_problem builds them, started from _perturbed cameras,
+        50 trials at most), against the same sharded LM run eagerly
+        (fused=False) and the single-card graph (ba.LMProgram without a
+        group) and eager (ba.lm_run_eager) runs: trials, accepted steps,
+        error and every camera tensor equal bit for bit (an all-reduce
+        over one rank is the identity), kernel 3 launched once per trial
+        executed in each; one line a problem, with each run's wall,
+        capture seconds, trials executed and host reads;
       * tiled_compose.multi_blend_sharded against blending.multi_blend on
         slice 2's blocks (``pano2``): within 0.05 on the 0..255 scale;
       * render/fullres.render_full_dev through the image-split schedule
@@ -1061,8 +1073,8 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
     Prints one line per check with its wall; raises on any failure; the
     process group is destroyed before it returns. Returns the launches
     of the path's own calls (not of the single-card or checking calls)
-    as {"assemble_streams": kernel 3's in the sharded LM runs, counted
-    around each, "mincut": (kernel 1's, kernel 2's) from the start of
+    as {"assemble_streams": kernel 3's in the graphed sharded LM runs
+    (the replays), counted around each, "mincut": (kernel 1's, kernel 2's) from the start of
     the phase to the end of the sharded min-cut, before kernel 1's
     checking call; the single-card calls in between launch no
     min-cut}."""
@@ -1087,44 +1099,74 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
               world=mesh.size, device_of_rank=str(mesh.device),
               wall_s=time.perf_counter() - t0, device=card)
 
-        # ---- the match-sharded BA against the single-card eager run ----
+        # ---- the match-sharded BA: as one CUDA graph with its
+        # all-reduces (the path), eagerly, and the single-card runs ----
         for name, (cams, data, active, fast, lam) in ba_problems.items():
             M, n_cams = data.mi.shape[0], cams.focal.shape[0]
             ws = ba_kernel.workspace(M, n_cams, "cuda")
             cams0 = _perturbed(torch, cams, active)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r_e, ex_e, _ = ba.lm_run_eager(cams0, data, active, lam,
-                                           fast=fast, ws=ws)
-            torch.cuda.synchronize()
-            wall_e = time.perf_counter() - t0
-            ba_kernel.assemble_streams.launches = 0
-            t0 = time.perf_counter()
-            r_s, ex_s, reads = lm_run_sharded(cams0, data, active, lam,
-                                              mesh, fast=fast, ws=ws,
-                                              with_counts=True)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            k3 = ba_kernel.assemble_streams.launches
-            launches += k3
-            same = all(torch.equal(a, b) for a, b in zip(r_e.cams, r_s.cams))
-            same_err = bool(torch.equal(r_e.error, r_s.error))
-            counts = [int(r_e.n_iter), int(r_s.n_iter), int(r_e.n_accepted),
-                      int(r_s.n_accepted)]
+            runs = {}
+
+            def single_graph():
+                program = ba.LMProgram(data, n_cams, fast)
+                try:
+                    out = program.run(cams0, active, lam)
+                finally:
+                    program.close()
+                return out, program.capture_s
+
+            def sharded(fused):
+                out = lm_run_sharded(cams0, data, active, lam, mesh,
+                                     fast=fast, ws=ws, with_counts=True,
+                                     fused=fused)
+                return out, lm_run_sharded.last_stats["capture_s"]
+
+            for run, fn in (
+                    ("graph_sharded", lambda: sharded(True)),
+                    ("eager_sharded", lambda: sharded(False)),
+                    ("graph_single", single_graph),
+                    ("eager_single", lambda: (ba.lm_run_eager(
+                        cams0, data, active, lam, fast=fast, ws=ws), 0.0))):
+                torch.cuda.synchronize()
+                ba_kernel.assemble_streams.launches = 0
+                t0 = time.perf_counter()
+                (res, executed, reads), capture_s = fn()
+                torch.cuda.synchronize()
+                runs[run] = dict(
+                    res=res, wall_s=time.perf_counter() - t0,
+                    capture_s=capture_s, trials=int(res.n_iter),
+                    accepted=int(res.n_accepted), trials_executed=executed,
+                    host_reads=reads,
+                    assemble_streams_launches=(
+                        ba_kernel.assemble_streams.launches))
+            launches += runs["graph_sharded"]["assemble_streams_launches"]
+            ref = runs["graph_sharded"]["res"]
+            equal = {run: bool(
+                all(torch.equal(a, b) for a, b in zip(ref.cams, r["res"].cams))
+                and torch.equal(ref.error, r["res"].error))
+                for run, r in runs.items() if run != "graph_sharded"}
+            trials = runs["graph_sharded"]["trials"]
             _line("dist", check="lm_run_sharded", problem=name, fast=fast,
-                  tolerance="trials, accepted steps, cameras and error "
-                  "equal bit for bit; kernel 3 once per trial executed",
-                  matches=M, n_cams=n_cams, trials=counts[:2],
-                  accepted=counts[2:], trials_executed=[ex_e, ex_s],
-                  host_reads=reads, assemble_streams_launches=k3,
-                  cameras_equal_bits=same, error_equal_bits=same_err,
-                  error=float(r_s.error), eager_wall_s=wall_e,
-                  sharded_wall_s=wall_s, device=card)
-            if not (same and same_err and counts[0] == counts[1]
-                    and counts[2] == counts[3] and ex_e == ex_s
-                    and k3 == ex_s and counts[0] >= 8):
-                raise RuntimeError(f"dist: lm_run_sharded on {name} differs "
-                                   "from ba.lm_run_eager at world 1")
+                  tolerance="the graphed sharded LM equal, bit for bit, to "
+                  "the eager sharded and the single-card graph and eager "
+                  "runs in trials, accepted steps, cameras and error; "
+                  "kernel 3 once per trial executed in each",
+                  matches=M, n_cams=n_cams, equal_bits=equal,
+                  ms_per_trial_executed={
+                      run: 1e3 * (r["wall_s"] - r["capture_s"])
+                      / r["trials_executed"] for run, r in runs.items()},
+                  runs={run: {k: v for k, v in r.items() if k != "res"}
+                        for run, r in runs.items()}, device=card)
+            if not (all(equal.values()) and trials >= 8
+                    and all(r["trials"] == trials
+                            and r["accepted"]
+                            == runs["graph_sharded"]["accepted"]
+                            and r["assemble_streams_launches"]
+                            == r["trials_executed"] for r in runs.values())
+                    and runs["graph_sharded"]["capture_s"] > 0):
+                raise RuntimeError(f"dist: the sharded LM on {name} differs "
+                                   "between its graphed, eager and "
+                                   "single-card runs at world 1")
 
         # ---- the sharded multiband blend on slice 2's blocks ----
         st = pano2.stitch_params.state
@@ -1289,7 +1331,8 @@ print("rank", mesh.rank, "ok", flush=True)
 def _two_card_phase(torch, card, tmp, paths, single):
     """With two or more cards: slice 2's stitch, preview and full-res in a
     world of 2 ranks over NCCL (parallel/launch.run_world, one process a
-    card) against the single-card run ``single`` = (connected, focals,
+    card; the BA splits its matches over the ranks, each bucket's trial
+    one CUDA graph holding its all-reduces) against the single-card run ``single`` = (connected, focals,
     preview, full): the same views connected, focals within 1e-3
     relative, preview and full-res NCC >= 0.99. With one card it prints
     why it was skipped."""
@@ -1339,7 +1382,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA GPU")
     import cv2
-    from simplepanorama_tpu_torch import Config, Panorama, cli
+    from simplepanorama_tpu_torch import Config, Panorama, cli, stitcher
     from simplepanorama_tpu_torch import ba, stitch as tstitch
     from simplepanorama_tpu_torch.fixtures import (cut_grid, fkh360_views,
                                                    maze_grid)
@@ -1516,11 +1559,40 @@ def main():
         wall = time.perf_counter() - t0
         launches2 = _launches(maxflow)
         launches2_k3 = ba_kernel.assemble_streams.launches
+        # get_panorama joins the prefetch that stitch() started (the
+        # full-res decode and upload ran under get_preview) and renders
         t0 = time.perf_counter()
         full = pano.get_panorama()
         torch.cuda.synchronize()
         full_wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        stages2 = dict(timer.durations)
+        prefetch2 = dict(pano.prefetch_stats)
+        # the same render through the synchronous path (the images
+        # decoded on get_panorama's critical path) and through a fresh
+        # prefetch under a second preview, in turns, with the bits held
+        full_turns = {"prefetched": [full_wall], "synchronous": []}
+        same_bits = []
+        for turn in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stitcher.render_full_from_imageset(
+                pano.stitch_params, pano.config, pano.images)
+            torch.cuda.synchronize()
+            full_turns["synchronous"].append(time.perf_counter() - t0)
+            same_bits.append(bool(np.array_equal(out, full)))
+            if turn == 0:
+                pano._start_full_prefetch()      # as stitch() starts it
+                pano.get_preview()
+                pano._full_pano = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = pano.get_panorama()
+                torch.cuda.synchronize()
+                full_turns["prefetched"].append(time.perf_counter() - t0)
+                full_turns["prefetch_2"] = dict(pano.prefetch_stats)
+                same_bits.append(bool(np.array_equal(out, full)))
+        del out
         focals = pano.result.K[:, 0, 0]
         gains = np.asarray(pano.stitch_params.gains)
         blocks = list(pano.stitch_params.state.masks.shape)
@@ -1539,7 +1611,10 @@ def main():
               full_shape=list(full.shape), full_vs_preview_ncc=ncc_full,
               full_vs_preview_ncc_whole=ncc_whole,
               full_vs_preview_shift=list(shift_full), wall_s=wall,
-              full_wall_s=full_wall, stages_s=dict(timer.durations),
+              full_wall_s=full_wall, prefetch=prefetch2,
+              full_turns_s=full_turns,
+              prefetched_equals_synchronous_bits=all(same_bits),
+              stages_s=stages2,
               max_memory_allocated=peak,
               solver_stats=maxflow.grid_mincut_tiled.last_stats, **lm2,
               assemble_streams_launches=launches2_k3, device=card)
@@ -1563,6 +1638,10 @@ def main():
                                f"preview {preview.shape}")
         if ncc_full < 0.95:
             raise RuntimeError(f"full-res vs preview NCC {ncc_full}")
+        if not all(same_bits) or not prefetch2.get("decode_s"):
+            raise RuntimeError(f"slice2: the prefetched full-res render "
+                               f"({prefetch2}) differs from the "
+                               f"synchronous one: {same_bits}")
         pano2 = pano     # for the dist phase
         slice2_single = (tuple(pano.connected), focals, preview, full)
         paths2 = list(paths)
@@ -1795,7 +1874,8 @@ def main():
          "source": sources["assemble_streams"],
          "replaces": "simplepanorama_tpu/ops/ba_kernel.py:140",
          # once per LM trial executed: its launches in the stitches of
-         # slices 1, 2 and 5 and in slice 3's four CLI commands
+         # slices 1, 2 and 5, in slice 3's four CLI commands and in the
+         # graphed sharded LM of the dist phase (counted on the replays)
          "launches": launches1_k3 + launches2_k3 + launches3_path
          + launches5_k3 + launches_dist["assemble_streams"],
          "launches_by_path": {"slice": launches1_k3, "slice2": launches2_k3,

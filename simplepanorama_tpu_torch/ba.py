@@ -17,7 +17,8 @@ ops/ba_kernel.assemble_streams (kernel 3 on the card, its plain version on
 the CPU), the solve, the back-substitution by gathers and the accept test,
 applied with torch.where alone. The host reads the termination flag once
 every READ_EVERY trials (``lm_run_eager``); on the card ``LMProgram``
-replays the trial as a CUDA graph between those reads. The per-pair H
+replays the trial as a CUDA graph between those reads, its all-reduces
+included when the matches are split across ranks. The per-pair H
 chain and its Jacobian come from torch.func.jacfwd + vmap over the
 realized camera pairs; the per-match table expansion is an index gather
 with an explicit clamp. Both objectives are ported: the relaxed one
@@ -463,6 +464,17 @@ class LMProblem(NamedTuple):
 # read every trial would stall the card 46 times
 READ_EVERY = 8
 
+# capture_error_mode of LMProgram's capture, by whether the trial holds
+# collectives. "global" (PyTorch's default) makes a CUDA call that is
+# unsafe under capture an error in any thread, and such a call
+# invalidates the capture; "thread_local" checks only the capturing
+# thread. ProcessGroupNCCL's watchdog thread queries the events of
+# earlier collectives on its own schedule, so a sharded trial is
+# captured thread-local. (On an H100 at world 1 the sharded trial
+# captured in both modes; the watchdog's timing, not the trial, decides
+# whether "global" fails.)
+_CAPTURE_MODE = {False: "global", True: "thread_local"}
+
 
 def _active_matches(data: BAData, cam_active):
     # ids beyond a cropped camera table clamp, like a JAX gather
@@ -653,10 +665,21 @@ class LMProgram:
     run of the bucket. The first run's first trial runs eagerly on a side
     stream (the warm-up that capture needs), then the trial is captured
     with host syncs raising. Call ``close`` to release the graph and its
-    memory pool."""
+    memory pool.
+
+    With a process ``group`` (the match-sharded BA, parallel.dist_ba),
+    ``data`` and the cameras' b are this rank's share of the matches
+    (parallel.mesh.shard_matches), and the graph holds the trial's two
+    all_reduces: the camera system and the trial error. The warm-up
+    trial issues them eagerly before the capture, so no collective is
+    first issued inside it. The termination flag is computed from
+    all-reduced values only, so every rank reads the same flag and
+    replays the same number of trials. A capture that fails raises: there
+    is no eager fallback."""
 
     def __init__(self, data: BAData, n_cams: int, fast: bool,
-                 max_iter: int = 50, read_every: int = READ_EVERY):
+                 max_iter: int = 50, read_every: int = READ_EVERY,
+                 group=None):
         dev = data.mi.device
         if dev.type != "cuda":
             raise ValueError(f"LMProgram runs on a CUDA device, not {dev}")
@@ -666,7 +689,7 @@ class LMProgram:
         self.pb = lm_problem(
             data, torch.zeros(n_cams, dtype=torch.bool, device=dev),
             torch.zeros((), **i64), max_iter,
-            ba_kernel.workspace(M, n_cams, dev))
+            ba_kernel.workspace(M, n_cams, dev), group)
         f = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.st = LMState(
             cams=CamState(f(n_cams), f(n_cams, 2), f(n_cams, 3), f(M, 2)),
@@ -685,14 +708,20 @@ class LMProgram:
             dst.copy_(src)
         self.live.copy_(_live(st, self.pb.max_iter))
 
-    def _load(self, cams: CamState, cam_active, lambda0, vaug_idx: int):
+    def _load(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
         pb, st = self.pb, self.st
         for dst, src in zip(st.cams, cams):
             dst.copy_(src)
         pb.cam_active.copy_(cam_active)
         pb.active_m.copy_(_active_matches(pb.data, pb.cam_active))
-        pb.vaug_idx.fill_(int(vaug_idx))
-        st.err.copy_(total_error(st.cams, pb.data, pb.active_m, self.fast))
+        if vaug_idx is None:     # the last active camera, on the device
+            idx = torch.arange(pb.cam_active.shape[0],
+                               device=pb.cam_active.device)
+            pb.vaug_idx.copy_(torch.where(pb.cam_active, idx,
+                                          torch.zeros_like(idx)).max())
+        else:
+            pb.vaug_idx.fill_(int(vaug_idx))
+        st.err.copy_(_error(st.cams, pb, self.fast))
         st.lam.fill_(float(lambda0))
         for t in (st.it, st.strikes, st.n_acc):
             t.zero_()
@@ -706,7 +735,8 @@ class LMProgram:
         torch.cuda.current_stream().wait_stream(side)
         before = ba_kernel.assemble_streams.launches
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=_CAPTURE_MODE[
+                self.pb.group is not None]):
             with _device_trials(True):
                 self._store(lm_trial(self.st, self.pb, self.fast))
         # capture records the launches, it does not run them: the replays
@@ -716,9 +746,11 @@ class LMProgram:
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
-    def run(self, cams: CamState, cam_active, lambda0, vaug_idx: int):
-        """One LM run from ``cams``. Returns (LMResult, trials executed, the
-        warm-up and the no-op ones after the end included, host reads)."""
+    def run(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
+        """One LM run from ``cams``. ``vaug_idx``: the camera whose focal
+        scales the V augment (by default the last active one). Returns
+        (LMResult, trials executed, the warm-up and the no-op ones after
+        the end included, host reads)."""
         self._load(cams, cam_active, lambda0, vaug_idx)
         executed = reads = 0
         if self.graph is None:

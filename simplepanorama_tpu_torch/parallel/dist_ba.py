@@ -13,9 +13,12 @@ stays local. This is the reference's get_iter_par dataflow
 (_bundle_adjust_main.cpp:192-244) as a collective schedule.
 
 There is no second LM: ``ba.lm_trial`` with the process group of a mesh
-is the sharded trial, and ``ba.lm_run_eager`` drives it with a host read
-every ba.READ_EVERY trials (the card's CUDA-graph replay,
-ba.LMProgram, is single-device). The JAX package's two variants,
+is the sharded trial. On the card ``ba.LMProgram`` captures it, both
+all_reduces included, as one CUDA graph and replays it, with a host read
+every ba.READ_EVERY trials: the counterpart of the JAX package's one
+compiled program. On the CPU (gloo; CUDA graphs do not exist there), and
+when asked with ``fused=False``, ``ba.lm_run_eager`` runs the same trial
+eagerly. The JAX package's two variants,
 ``lm_run_sharded`` (sharding annotations, XLA's partitioner inserts the
 all-reduces) and ``lm_run_shard_map`` (explicit psums), compute the same
 numbers; here both names are this one implementation, and
@@ -39,21 +42,42 @@ def lm_run_sharded(cams: ba.CamState, data: ba.BAData, cam_active,
                    lambda0, mesh: Mesh, fast: bool = False,
                    max_iter: int = 50,
                    vaug_idx=None, ws=None,
-                   with_counts: bool = False):
+                   with_counts: bool = False, fused: bool = True):
     """ba.lm_run with the match axis split over ``mesh``. ``cams`` and
     ``data`` are whole (every rank holds the same), on ``mesh.device``;
     the result's b is gathered back to the whole table on every rank.
-    ``ws``: kernel 3's workspace for this rank's share (on the card).
+    On the card (``fused``, the default) the trial is one CUDA graph with
+    its all_reduces inside (ba.LMProgram with the mesh's group, made and
+    released in this call); ``fused=False`` and the CPU run it eagerly,
+    with kernel 3's workspace ``ws`` for this rank's share (on the card).
     With ``with_counts`` it returns (LMResult, trials executed, host
-    reads), as ba.lm_run_eager does."""
+    reads), as ba.lm_run_eager does. ``lm_run_sharded.last_stats`` holds
+    the last call's ``graphed`` and ``capture_s`` (host seconds
+    capturing)."""
     local = shard_matches(data, mesh)
-    b_local = cams.b[mesh.rank::mesh.size]
-    res, executed, reads = ba.lm_run_eager(
-        cams._replace(b=b_local), local, cam_active, lambda0, fast=fast,
-        max_iter=max_iter, vaug_idx=vaug_idx, ws=ws, group=mesh.group)
+    start = cams._replace(b=cams.b[mesh.rank::mesh.size])
+    graphed = fused and cams.focal.device.type == "cuda"
+    capture_s = 0.0
+    if graphed:
+        program = ba.LMProgram(local, cams.focal.shape[0], fast,
+                               max_iter=max_iter, group=mesh.group)
+        try:
+            res, executed, reads = program.run(start, cam_active, lambda0,
+                                               vaug_idx)
+            capture_s = program.capture_s
+        finally:
+            program.close()
+    else:
+        res, executed, reads = ba.lm_run_eager(
+            start, local, cam_active, lambda0, fast=fast,
+            max_iter=max_iter, vaug_idx=vaug_idx, ws=ws, group=mesh.group)
+    lm_run_sharded.last_stats = {"graphed": graphed, "capture_s": capture_s}
     b = cams.b if fast else unshard_matches(res.cams.b, mesh)
     res = res._replace(cams=res.cams._replace(b=b))
     return (res, executed, reads) if with_counts else res
+
+
+lm_run_sharded.last_stats = {}
 
 
 def lm_run_shard_map(cams: ba.CamState, data: ba.BAData, cam_active,

@@ -19,6 +19,7 @@ import torch
 
 from simplepanorama_tpu_torch.geometry.canvas import (PanImgTransform,
                                                       get_translation)
+from simplepanorama_tpu_torch.utils.device import checked_device
 
 
 def warp_perspective(img: torch.Tensor, H_inv: torch.Tensor, out_h: int,
@@ -51,11 +52,12 @@ def warp_perspective(img: torch.Tensor, H_inv: torch.Tensor, out_h: int,
 
 
 def pairwise_stitch(base: np.ndarray, attach: np.ndarray, H: np.ndarray,
-                    device="cpu") -> np.ndarray:
+                    device="cuda") -> np.ndarray:
     """Legacy two-image stitch (imgm::stitch): warp ``attach`` by H into
-    the base plane on ``device``, allocate the union canvas, paste base
-    on top where it has content. ``H`` maps attach coordinates into base
-    coordinates."""
+    the base plane on ``device`` (the card unless the caller asks for
+    another), allocate the union canvas, paste base on top where it has
+    content. ``H`` maps attach coordinates into base coordinates."""
+    device = checked_device(device)
     T, xs, xe, ys, ye = get_translation(base.shape[:2], attach.shape[:2],
                                         np.asarray(H, np.float64))
     out_w = int(xe - xs + 1)
@@ -75,12 +77,13 @@ def pairwise_stitch(base: np.ndarray, attach: np.ndarray, H: np.ndarray,
 
 
 def render_flat(transform: PanImgTransform, images: Sequence[np.ndarray],
-                device="cpu") -> np.ndarray:
+                device="cuda") -> np.ndarray:
     """Composite the chained-homography flat panorama (the reference's
-    pre-BA projective layout): each image is warped on ``device`` by its
-    img_to_pan chain onto the shared canvas, pasted in order of falling
-    connectivity with the first image winning where footprints
-    overlap."""
+    pre-BA projective layout): each image is warped on ``device`` (the
+    card unless the caller asks for another) by its img_to_pan chain onto
+    the shared canvas, pasted in order of falling connectivity with the
+    first image winning where footprints overlap."""
+    device = checked_device(device)
     ph, pw = transform.pan_hw
     if ph <= 0 or pw <= 0:
         raise RuntimeError("Flat panorama dimensions out of range")

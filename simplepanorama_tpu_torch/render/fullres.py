@@ -8,8 +8,12 @@ full-res blocks, divide by the preview's gains, and re-blend. BA never
 runs again.
 
 The only persistent device state is the canvas accumulator pair (color,
-alpha); the images go through in chunks sized to a device-memory budget,
-each warped, corrected and folded into the canvas, then freed. Seam masks
+alpha), and the packed source stack when ``prefetch_sources`` uploaded it
+ahead of the render (Panorama does so in a background thread while the
+preview composites); the images go through in chunks sized to a
+device-memory budget, each warped, corrected and folded into the canvas,
+then freed. On the card every source upload is from pinned host memory
+on a side stream, the next chunk's under the current one's work. Seam masks
 are upsampled with a cv2-aligned cubic interpolation matrix (Keys
 a=-0.75, pixel-centre mapping src = (dst + 0.5) * ratio - 0.5, the
 INTER_CUBIC of _panorama.cpp:329-335), intensity fields with the linear
@@ -172,9 +176,107 @@ def _pad_align(h: int, w: int):
     return (h + 7) // 8 * 8, (w + 127) // 128 * 128
 
 
+def _host_stack(full_images, ids, Hs: int, Ws: int,
+                pinned: bool) -> torch.Tensor:
+    """The images ``ids`` of ``full_images`` packed into one (len(ids), Hs,
+    Ws, 3) uint8 host tensor, zero-padded at the bottom and right, in
+    pinned memory when ``pinned`` (for an asynchronous copy to the
+    card)."""
+    out = torch.empty((len(ids), Hs, Ws, 3), dtype=torch.uint8,
+                      pin_memory=pinned)
+    a = out.numpy()
+    for k, i in enumerate(ids):
+        im = full_images[i]
+        h, w = im.shape[:2]
+        a[k, :h, :w] = im
+        a[k, h:] = 0
+        a[k, :h, w:] = 0
+    return out
+
+
+def _send(full_images, ids, Hs: int, Ws: int, dev, side):
+    """Pack the images ``ids`` into pinned host memory and queue their
+    copy to the card ``dev`` on the stream ``side``. Returns (the stack
+    on ``dev``, an event recorded after the copy)."""
+    host = _host_stack(full_images, ids, Hs, Ws, True)
+    with torch.cuda.stream(side):
+        stack = host.to(dev, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(side)
+    return stack, ready
+
+
+def _receive(stack, ready, dev):
+    """``stack`` for work on the current stream of ``dev``: the stream
+    waits on the copy's event, and the stack is recorded on it so the
+    caching allocator does not reuse the block before that work ends."""
+    consumer = torch.cuda.current_stream(dev)
+    consumer.wait_event(ready)
+    stack.record_stream(consumer)
+    return stack
+
+
+def _chunk_sources(full_images, sel, G: int, Hs: int, Ws: int, dev):
+    """The packed sources of ``sel`` on ``dev``, one (<= G, Hs, Ws, 3)
+    uint8 stack a chunk, in order. On the card each is copied from pinned
+    memory on a side stream, and the next chunk's copy is queued before
+    this one is handed out, so that it runs under this chunk's work."""
+    spans = [sel[s:s + G] for s in range(0, len(sel), G)]
+    if torch.device(dev).type != "cuda":
+        for ids in spans:
+            yield _host_stack(full_images, ids, Hs, Ws, False).to(dev)
+        return
+    side = torch.cuda.Stream(dev)
+    nxt = _send(full_images, spans[0], Hs, Ws, dev, side)
+    for k in range(len(spans)):
+        stack, ready = nxt
+        if k + 1 < len(spans):
+            nxt = _send(full_images, spans[k + 1], Hs, Ws, dev, side)
+        yield _receive(stack, ready, dev)
+
+
+def _selected(params, full_images):
+    """The component rows the full-res render draws (connected, with a
+    full-res image), and the padded source size (Hs, Ws)."""
+    res = params.res
+    sel = [i for i in range(len(res.nodes))
+           if res.connectivity[i] > 0 and full_images[i] is not None]
+    if not sel:
+        return sel, (0, 0)
+    return sel, (max(full_images[i].shape[0] for i in sel),
+                 max(full_images[i].shape[1] for i in sel))
+
+
+def prefetch_sources(params, full_images: Sequence[Optional[np.ndarray]]
+                     ) -> Optional[torch.Tensor]:
+    """Upload the packed full-res source stack ahead of render_full_dev,
+    on the device of the preview's blocks (``params.state.imgs``): the
+    (m, Hs, Ws, 3) uint8 sources of the connected images, zero-padded, in
+    component order (None when there are none). Pass it as
+    ``src_stack``. The sources depend only on the stitch result, never on
+    the compositing config, so a prefetched stack stays valid across
+    blend, seam and projection changes.
+
+    On the card the stack is packed into pinned host memory and copied
+    with ``non_blocking`` on a side stream; the calling thread's current
+    stream waits on the copy's event, and the stack is recorded on that
+    stream for the caching allocator, so the call returns before the copy
+    lands and work queued on that stream afterwards sees the whole
+    stack."""
+    sel, (Hs, Ws) = _selected(params, full_images)
+    if not sel:
+        return None
+    dev = params.state.imgs.device
+    if dev.type != "cuda":
+        return _host_stack(full_images, sel, Hs, Ws, False).to(dev)
+    return _receive(*_send(full_images, sel, Hs, Ws, dev,
+                           torch.cuda.Stream(dev)), dev)
+
+
 def render_full_dev(params, cfg: Config,
                     full_images: Sequence[Optional[np.ndarray]],
-                    mesh=None, schedule: Optional[str] = None) -> np.ndarray:
+                    mesh=None, schedule: Optional[str] = None,
+                    src_stack: Optional[torch.Tensor] = None) -> np.ndarray:
     """Streaming re-render at full resolution on the device of the
     preview's blocks (port of fullres.render_full_dev).
 
@@ -214,8 +316,7 @@ def render_full_dev(params, cfg: Config,
         sizes_full.append((h1, w1))
     scale = float(K_scaled[res.center][0, 0])
 
-    sel = [i for i in range(n)
-           if res.connectivity[i] > 0 and full_images[i] is not None]
+    sel, (Hs, Ws) = _selected(params, full_images)
     kind = params.proj_kind
 
     rois_f = {i: prj.roi_for_image(kind, scale, params.rot[i], K_scaled[i],
@@ -240,8 +341,8 @@ def render_full_dev(params, cfg: Config,
     row_of = {i: b for b, i in enumerate(state_sel)}
 
     m = len(sel)
-    Hs = max(sizes_full[i][0] for i in sel)
-    Ws = max(sizes_full[i][1] for i in sel)
+    if src_stack is not None and tuple(src_stack.shape) != (m, Hs, Ws, 3):
+        src_stack = None                 # stale prefetch: pack again
     Ka_b = np.zeros((m, 3, 3), np.float32)
     R_b = np.zeros((m, 3, 3), np.float32)
     c_b = np.zeros((m, 2), np.float32)
@@ -274,11 +375,9 @@ def render_full_dev(params, cfg: Config,
     per_img = (Hs * Ws * (3 + 16)               # uint8 source + working copy
                + out_h * out_w * 4 * (3 + 1 + 1)    # block + mask + seam
                + out_h * out_w * temps)         # blur/contribution temps
-    # (the JAX package also splits four or more images into at least two
-    # chunks, so that its asynchronous uploads overlap the work; the
-    # port's upload from pageable memory waits for the stream, and the
-    # canvas does not depend on the chunking)
-    G = int(max(1, min(m, _CHUNK_BUDGET // max(1, per_img))))
+    # a prefetched stack on the device counts against the budget
+    budget = _CHUNK_BUDGET - (0 if src_stack is None else src_stack.numel())
+    G = int(max(1, min(m, max(1, budget) // max(1, per_img))))
 
     if method != "MULTI":
         mesh = None
@@ -291,10 +390,8 @@ def render_full_dev(params, cfg: Config,
         from simplepanorama_tpu_torch.parallel import tiled_compose as tc
         rows = [row_of[i] for i in sel]
         zeros = torch.zeros((m, 1, 1), dtype=torch.float32, device=dev)
-        src = np.zeros((m, Hs, Ws, 3), np.uint8)
-        for b, i in enumerate(sel):
-            h1, w1 = sizes_full[i]
-            src[b, :h1, :w1] = full_images[i]
+        src = src_stack if src_stack is not None else \
+            _host_stack(full_images, sel, Hs, Ws, False)
         args = dict(
             Ka=Ka_b, R=R_b, corner=c_b, vhw=vhw_b, roi_wh=wh_b,
             offs=np.asarray(off_b, np.int64),
@@ -314,20 +411,23 @@ def render_full_dev(params, cfg: Config,
             raise ValueError(f"unknown full-res schedule {schedule!r}")
         return out.cpu().numpy()
 
+    if src_stack is None and m >= 4:
+        # at least two chunks, so that the next chunk's upload overlaps
+        # this one's work (the JAX package's rule)
+        G = min(G, (m + 1) // 2)
     color = torch.zeros((d.height + out_h, d.width + out_w, 3),
                         dtype=torch.float32, device=dev)
     alpha = torch.zeros((d.height + out_h, d.width + out_w),
                         dtype=torch.float32, device=dev)
     T = lambda a: torch.as_tensor(a, device=dev)
-    for s in range(0, m, G):
+    sources = (src_stack[s:s + G] for s in range(0, m, G)) \
+        if src_stack is not None else \
+        _chunk_sources(full_images, sel, G, Hs, Ws, dev)
+    for s, src in zip(range(0, m, G), sources):
         ids = list(range(s, min(s + G, m)))
-        src_h = np.zeros((len(ids), Hs, Ws, 3), np.uint8)
-        for k, b in enumerate(ids):
-            h1, w1 = sizes_full[sel[b]]
-            src_h[k, :h1, :w1] = full_images[sel[b]]
         rows = [row_of[sel[b]] for b in ids]
         _chunk_accum(
-            color, alpha, T(src_h), T(Ka_b[ids]), T(R_b[ids]), T(c_b[ids]),
+            color, alpha, src, T(Ka_b[ids]), T(R_b[ids]), T(c_b[ids]),
             T(vhw_b[ids]), T(wh_b[ids]), [off_b[b] for b in ids],
             st.seam_masks[rows].to(torch.float32) if use_seam else None,
             [tuple(map(float, sr_b[b])) for b in ids],

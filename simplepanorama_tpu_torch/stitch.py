@@ -15,8 +15,10 @@ at a cropped capacity bucket (matches rounded to 2048, cameras to 8) —
 the JAX package's bucket plan. On the card each bucket's LM trial is one
 CUDA graph (ba.LMProgram), replayed with a host read of the termination
 flag every few trials: the counterpart of the JAX package's one compiled
-program per chunk. The additions themselves (the rotation init's SVD)
-run eagerly, once each.
+program per chunk. In a world of several ranks the matches of every
+chunk are split across the ranks (parallel.dist_ba), and on the card the
+bucket's graph holds the trial's all_reduces too. The additions
+themselves (the rotation init's SVD) run eagerly, once each.
 """
 
 from __future__ import annotations
@@ -50,23 +52,11 @@ class StitchResult:
     sizes: List[Tuple[int, int]]  # (h, w) per local node
 
 
-# Matches per rank from which, in a world of several ranks, the BA splits
-# its matches across the ranks (parallel.dist_ba). Below it every rank
-# runs the whole BA itself, on the card as CUDA graphs, with the same
-# result. The split trial runs eagerly, with collectives: on an H100 that
-# is 20-37 ms a trial against a graph's 2-3 ms, so the split pays only
-# where the matches' own work in a trial, divided by the ranks, saves
-# more. At 6,144 matches kernel 3 takes 16-23 us and the whole graphed
-# trial 2-3 ms, which puts the crossover between ~40 thousand and ~6
-# million matches per rank at two ranks; no multi-card run has measured
-# it, and this is a point between the two.
-BA_SHARD_MIN_MATCHES = 1 << 19
-
-
 def _ba_mesh(mesh, n_matches: int):
-    """The mesh the BA splits ``n_matches`` matches over, or None (every
-    rank runs the whole BA)."""
-    if mesh is None or n_matches < BA_SHARD_MIN_MATCHES * mesh.size:
+    """The mesh the BA splits ``n_matches`` matches over, or None (the
+    single-device BA): a world of two or more ranks splits them whenever
+    the count divides, as the JAX package's stitch does."""
+    if mesh is None or mesh.size < 2 or n_matches % mesh.size:
         return None
     return mesh
 
@@ -259,13 +249,14 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     eagerly. Progress and cancellation are per chunk. ``device`` is the
     card unless the caller asks for another.
 
-    In a world of several ranks (parallel.mesh.pipeline_mesh) with at
-    least BA_SHARD_MIN_MATCHES matches per rank, the matches of every
-    chunk are split across the ranks and its trials run eagerly with the
-    camera system all-reduced (parallel.dist_ba): match capacity then
+    In a world of several ranks (parallel.mesh.pipeline_mesh) the matches
+    of every chunk are split across the ranks, with the camera system and
+    the trial error all-reduced (parallel.dist_ba): match capacity then
     rounds to 512 per rank, so every rank's share suits kernel 3, and b is
-    gathered back after each chunk. With fewer, every rank runs the whole
-    BA as on one device. Every rank ends with the same result."""
+    gathered back after each chunk. With ``fused`` on the card each
+    bucket's sharded trial is one CUDA graph holding its all_reduces
+    (ba.LMProgram with the mesh's group); ``fused=False`` and the CPU run
+    it eagerly. Every rank ends with the same result."""
     from simplepanorama_tpu_torch.parallel.mesh import (
         pipeline_mesh, shard_matches, unshard_matches)
     device = checked_device(device)
@@ -337,15 +328,14 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             if mesh is not None:
                 data_c = shard_matches(data_c, mesh)
                 cams_c = cams_c._replace(b=cams_c.b[mesh.rank::world])
-                if on_card:
-                    ws = ba_kernel.workspace(m_cap // world, n_cap, device)
-            elif on_card and fused:
+            if on_card and fused:
                 program = programs.get((n_cap, m_cap))
                 if program is None:
                     program = programs[n_cap, m_cap] = ba.LMProgram(
-                        data_c, n_cap, bool(cfg.fast))
+                        data_c, n_cap, bool(cfg.fast),
+                        group=None if mesh is None else mesh.group)
             elif on_card:
-                ws = ba_kernel.workspace(m_cap, n_cap, device)
+                ws = ba_kernel.workspace(m_cap // world, n_cap, device)
             cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
                                   order_conns, H_pair, vaug,
                                   float(cfg.lambda_), bool(cfg.fast),

@@ -199,18 +199,23 @@ def _blend_dispatch(cfg: Config, imgs, masks, seam_masks,
 
 
 def render_full(params: StitchParams, cfg: Config,
-                full_images: Sequence[Optional[np.ndarray]]) -> np.ndarray:
+                full_images: Sequence[Optional[np.ndarray]],
+                src_stack=None) -> np.ndarray:
     """Full-resolution re-render (stitch_parameters::return_full): rescale
     K by the full/preview resolution ratio, re-project, resize the seam
     masks on the device, re-blend. Streamed through render.fullres, except
     for the stereographic centre fix, which renders the per-image lists
-    of render_full_host. ``full_images`` is indexed like the component."""
+    of render_full_host. ``full_images`` is indexed like the component;
+    ``src_stack``, their packed stack already on the device
+    (fullres.prefetch_sources), is used by the streamed render and
+    ignored by render_full_host."""
     from simplepanorama_tpu_torch.render.fullres import render_full_dev
     from simplepanorama_tpu_torch.utils.timing import stage
     with stage("render_full"):
         if cfg.fix_center and cfg.proj == Projection.STEREOGRAPHIC:
             return render_full_host(params, cfg, full_images)
-        return render_full_dev(params, cfg, full_images)
+        return render_full_dev(params, cfg, full_images,
+                               src_stack=src_stack)
 
 
 def render_full_host(params: StitchParams, cfg: Config,

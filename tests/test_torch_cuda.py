@@ -243,6 +243,95 @@ def test_get_panorama_card_matches_cpu(cuda, tmp_path):
     assert _ncc(prev_c, prev_g) >= 0.98 and _ncc(full_c, full_g) >= 0.98
 
 
+def test_prefetched_stack_on_card_renders_as_synchronous(cuda, tmp_path,
+                                                          monkeypatch):
+    """The full-res prefetch on the card (the two views of
+    test_get_panorama_card_matches_cpu): set_config starts it; the
+    stack it hands get_panorama lies on the card and was packed in
+    pinned host memory; the panorama rendered from it equals, bit for
+    bit, the synchronous render (stitcher.render_full_from_imageset, its
+    chunks uploaded from pinned memory too)."""
+    from simplepanorama_tpu_torch import stitcher
+    from simplepanorama_tpu_torch.render import fullres
+    paths, yaws, f = fkh360_views(2, 640, yaw_step_deg=20.0, hfov_deg=45.0,
+                                  out_dir=str(tmp_path))
+    fp = f * 320 / 640
+    K = np.array([[fp, 0, 160], [0, fp, 160], [0, 0, 1.0]])
+    Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]])
+          for a in np.radians(yaws)]
+    res = StitchResult(rot=np.stack(Rs), K=np.stack([K, K]),
+                       adj=np.array([[0, 0.5], [0, 0]]),
+                       connectivity=np.array([1, 1]),
+                       order=[(0, -1), (1, 0)], nodes=[0, 1], center=0,
+                       sizes=[(320, 320), (320, 320)])
+    pinned, stacks = [], []
+    host_stack = fullres._host_stack
+    prefetch = fullres.prefetch_sources
+
+    def recording_host(*a, **kw):
+        out = host_stack(*a, **kw)
+        pinned.append(out.is_pinned())
+        return out
+
+    def recording_prefetch(*a, **kw):
+        stacks.append(prefetch(*a, **kw))
+        return stacks[-1]
+    monkeypatch.setattr(fullres, "_host_stack", recording_host)
+    monkeypatch.setattr(fullres, "prefetch_sources", recording_prefetch)
+    p = Panorama(paths, device=cuda)
+    p.result = res
+    p.set_config(Config(cut=True, init_size=320, gain_compensation=True))
+    p.get_preview()
+    full = p.get_panorama()
+    assert len(stacks) == 1 and stacks[0].device.type == "cuda"
+    assert tuple(stacks[0].shape) == (2, 640, 640, 3)
+    assert p.prefetch_stats["decode_s"] > 0 and pinned == [True]
+    want = stitcher.render_full_from_imageset(p.stitch_params, p.config,
+                                              p.images)
+    assert pinned == [True, True]
+    assert np.array_equal(full, want)
+
+
+def test_render_flat_runs_on_card_by_default(cuda):
+    """render/flat.render_flat and pairwise_stitch with no device warp on
+    the card; their panoramas equal the CPU's within 1 level (a float32
+    sample may round to the other side of .5)."""
+    from simplepanorama_tpu_torch.geometry.canvas import \
+        calc_stitch_from_adj
+    from simplepanorama_tpu_torch.render import flat
+    devices = []
+    warp = flat.warp_perspective
+
+    def recording(img, *a, **kw):
+        devices.append(img.device.type)
+        return warp(img, *a, **kw)
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(40, 255, (40, 50, 3)).astype(np.uint8)
+            for _ in range(2)]
+    hom = np.zeros((2, 2, 3, 3))
+    hom[:] = np.eye(3)
+    hom[0, 1, 0, 2] = 30.0
+    hom[1, 0, 0, 2] = -30.0
+    tr = calc_stitch_from_adj(np.array([[0, 1.0], [0, 0]]),
+                              np.array([1.0, 0.5]), [(40, 50), (40, 50)],
+                              hom, focal=700.0, fast=False)
+    H = np.eye(3)
+    H[0, 2] = 40.0
+    flat.warp_perspective = recording
+    try:
+        card = (flat.render_flat(tr, imgs),
+                flat.pairwise_stitch(imgs[0], imgs[1], H))
+    finally:
+        flat.warp_perspective = warp
+    assert devices == ["cuda"] * 3
+    cpu = (flat.render_flat(tr, imgs, device="cpu"),
+           flat.pairwise_stitch(imgs[0], imgs[1], H, device="cpu"))
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
 def test_radial_remap_card_matches_cpu(cuda, tmp_path):
     """The stereographic fix's batched radial remap (sten_fix.disk_reproj
     -> _radial_remap) of a 12-view 300-px loop's warp, on the card and on
@@ -332,15 +421,14 @@ def test_ba_kernel_matches_plain_version(cuda, N, M, seed, with_schur):
         assert not got[2].any() and not got[3].any()
 
 
-@pytest.fixture(scope="module")
-def slice1_ba(tmp_path_factory):
-    """The BA problem of slice 1 (12 views of 700 px, a 360-degree loop),
-    recorded from a stitch on the card: (comp, adjres, sizes, focal)."""
+def _recorded_ba(out_dir, size, cfg):
+    """The BA problem of a 12-view loop of ``size``-px views, recorded
+    from a stitch under ``cfg`` on the card: (comp, adjres, sizes,
+    focal)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from simplepanorama_tpu_torch import stitch
-    paths, _, _ = fkh360_views(12, 700,
-                               out_dir=str(tmp_path_factory.mktemp("s1")))
+    paths, _, _ = fkh360_views(12, size, out_dir=out_dir)
     seen = {}
     ba_stitching = stitch.bundle_adjust_stitching
 
@@ -349,10 +437,25 @@ def slice1_ba(tmp_path_factory):
         return ba_stitching(comp, adjres, sizes, focal, *a, **kw)
     stitch.bundle_adjust_stitching = recording
     try:
-        Panorama(paths, device="cuda").stitch(Config())
+        Panorama(paths, device="cuda").stitch(cfg)
     finally:
         stitch.bundle_adjust_stitching = ba_stitching
     return seen["args"]
+
+
+@pytest.fixture(scope="module")
+def slice1_ba(tmp_path_factory):
+    """The BA problem of slice 1 (12 views of 700 px, a 360-degree loop,
+    relaxed objective)."""
+    return _recorded_ba(str(tmp_path_factory.mktemp("s1")), 700, Config())
+
+
+@pytest.fixture(scope="module")
+def slice3_ba(tmp_path_factory):
+    """The BA problem of slice 3 (12 views of 1400 px at init_size 700,
+    Lowe objective)."""
+    return _recorded_ba(str(tmp_path_factory.mktemp("s3")), 1400,
+                        Config(fast=True))
 
 
 def _run_ba(args, fused, fast=False):
@@ -407,10 +510,10 @@ def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
     np.testing.assert_allclose(res_f.rot, res_e.rot, atol=1e-5)
 
 
-def _program(args, fast=False):
-    """An LMProgram of the last bucket of the schedule of ``args``, loaded
-    with the start of that bucket's last LM run (cameras at the focal
-    estimate, identity rotations): (program, cams, active)."""
+def _last_bucket(args):
+    """The last bucket of the schedule of ``args`` and the start of its
+    last LM run (cameras at the focal estimate, rotations spread over the
+    loop): (data cropped to the bucket, n_cap, cams, active, n)."""
     from simplepanorama_tpu_torch import ba, stitch
     comp, adjres, sizes, focal = args
     n = len(comp.nodes)
@@ -421,13 +524,22 @@ def _program(args, fast=False):
         prefix, n, stitch._round_up(n, 8), data.mi.shape[0])[-1]
     data_c = ba.BAData(*(t if k in ("pi", "pj") else t[:m_cap]
                          for k, t in data._asdict().items()))
-    prog = ba.LMProgram(data_c, n_cap, fast)
     cams = ba.CamState(
         focal=torch.full((n_cap,), focal, device="cuda"),
         ppal=torch.zeros((n_cap, 2), device="cuda"),
         rotvec=torch.zeros((n_cap, 3), device="cuda"), b=data_c.t.clone())
     cams.rotvec[1:n, 1] = torch.linspace(0.5, 5.8, n - 1)
     active = torch.arange(n_cap, device="cuda") < n
+    return data_c, n_cap, cams, active, n
+
+
+def _program(args, fast=False):
+    """An LMProgram of the last bucket of the schedule of ``args``, loaded
+    with the start of that bucket's last LM run: (program, cams,
+    active)."""
+    from simplepanorama_tpu_torch import ba
+    data_c, n_cap, cams, active, n = _last_bucket(args)
+    prog = ba.LMProgram(data_c, n_cap, fast)
     prog._load(cams, active, 0.05, n - 1)
     return prog, cams, active
 
@@ -555,6 +667,78 @@ def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
         assert torch.equal(a, b)
     assert torch.equal(r_e.error, r_s.error)
     assert int(r_e.n_iter) == int(r_s.n_iter) == 12
+
+
+def _same_run(a, b):
+    """Two LMResults equal bit for bit: cameras, error, lambda, trials
+    and accepted steps."""
+    return (all(torch.equal(x, y) for x, y in zip(a.cams, b.cams))
+            and all(torch.equal(getattr(a, k), getattr(b, k))
+                    for k in ("error", "lam", "n_iter", "n_accepted")))
+
+
+@pytest.mark.parametrize("problem", ["slice1_relaxed", "slice3_lowe"])
+def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
+                                                         request):
+    """ba.LMProgram with the mesh's process group (the sharded trial, its
+    two NCCL all_reduces captured in the graph) at world 1, on the last
+    bucket of slice 1's BA (relaxed) and of slice 3's (Lowe), against
+    ba.lm_run_eager with the group and ba.LMProgram without one, from
+    the same start: trials, accepted steps, error, lambda and every
+    camera tensor equal bit for bit (a sum over one rank is the
+    identity). Kernel 3 launches once per trial executed; every run
+    reads the termination flag from all-reduced values, so the reads
+    agree with the trials; a second run on the same program reuses its
+    graph (no warm-up, no capture) and gives the same bits; and
+    parallel.dist_ba.lm_run_sharded, the entry point, takes the graph
+    and gives them too."""
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.parallel.dist_ba import lm_run_sharded
+    from simplepanorama_tpu_torch.parallel.mesh import shard_matches
+    fast = problem == "slice3_lowe"
+    args = request.getfixturevalue(problem.split("_")[0] + "_ba")
+    data_c, n_cap, cams, active, n = _last_bucket(args)
+    runs, counts = {}, {}
+    sharded = ba.LMProgram(shard_matches(data_c, world1), n_cap, fast,
+                           group=world1.group)
+    single = ba.LMProgram(data_c, n_cap, fast)
+    try:
+        for name, run in (
+                ("graph_sharded", lambda: sharded.run(cams, active, 0.05,
+                                                      n - 1)),
+                ("eager_sharded", lambda: ba.lm_run_eager(
+                    cams, data_c, active, 0.05, fast=fast, vaug_idx=n - 1,
+                    ws=ba_kernel.workspace(data_c.mi.shape[0], n_cap,
+                                           "cuda"), group=world1.group)),
+                ("graph_single", lambda: single.run(cams, active, 0.05,
+                                                    n - 1))):
+            before = ba_kernel.assemble_streams.launches
+            runs[name], executed, reads = run()
+            torch.cuda.synchronize()
+            counts[name] = (executed, reads,
+                            ba_kernel.assemble_streams.launches - before)
+        graph = sharded.graph
+        again, executed, reads = sharded.run(cams, active, 0.05, n - 1)
+        assert sharded.graph is graph and executed == 8 * reads
+        assert _same_run(again, runs["graph_sharded"])
+    finally:
+        sharded.close()
+        single.close()
+    for name in ("eager_sharded", "graph_single"):
+        assert _same_run(runs["graph_sharded"], runs[name]), name
+    trials = int(runs["graph_sharded"].n_iter)
+    assert trials >= 8
+    for name, (executed, reads, launches) in counts.items():
+        assert launches == executed >= trials, name
+        assert executed - 8 * reads in (0, 1), name   # 1: the warm-up
+    assert counts["graph_sharded"] == counts["graph_single"]
+    res = lm_run_sharded(cams, data_c, active, 0.05, world1, fast=fast,
+                         vaug_idx=n - 1)
+    assert lm_run_sharded.last_stats["graphed"]
+    assert lm_run_sharded.last_stats["capture_s"] > 0
+    for a, b in zip(res.cams[:3], runs["graph_sharded"].cams[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(res.error, runs["graph_sharded"].error)
 
 
 def test_halo_exchange_world_1_fills_both_ends(world1):

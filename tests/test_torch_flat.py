@@ -60,7 +60,7 @@ def test_pairwise_stitch_matches_jax():
     H = np.eye(3)
     H[0, 2] = 40.0
     oj = jflat.pairwise_stitch(base, attach, H)
-    ot = tflat.pairwise_stitch(base, attach, H)
+    ot = tflat.pairwise_stitch(base, attach, H, device="cpu")
     assert ot.shape == oj.shape and ot.shape[1] >= 100
     assert np.abs(ot.astype(int) - oj.astype(int)).max() <= 1
     np.testing.assert_array_equal(ot[:50, :60], base)
@@ -83,7 +83,8 @@ def test_render_flat_two_image_chain_matches_jax():
     conn = np.array([1.0, 0.5])
     args = (adj, conn, [(40, 50), (40, 50)], hom)
     oj = jflat.render_flat(jcalc(*args, focal=700.0, fast=False), imgs)
-    ot = tflat.render_flat(tcalc(*args, focal=700.0, fast=False), imgs)
+    ot = tflat.render_flat(tcalc(*args, focal=700.0, fast=False), imgs,
+                           device="cpu")
     assert ot.shape[:2] == oj.shape[:2] == (40, 80)
     assert np.abs(ot.astype(int) - oj.astype(int)).max() <= 1
     np.testing.assert_array_equal(ot[:, :50], imgs[0])

@@ -94,23 +94,35 @@ def _agree(a, b, max_frac, max_mean, tol=3):
 @pytest.mark.parametrize("gain", [False, True])
 @pytest.mark.parametrize("cut", [False, True])
 @pytest.mark.parametrize("blend", ["MULTI_BLEND", "SIMPLE_BLEND",
-                                   "NO_BLEND"])
+                                   "NO_BLEND", "MULTI_BLEND/prefetched",
+                                   "MULTI_BLEND/stale_stack"])
 def test_render_full_matches_jax(preview_params, blend, cut, gain):
     """render_full of the port against JAX render_full_dev(force_single=
     True) on one preview state. Tolerance: fewer than 0.01% of pixels
     more than 1 level apart and a mean difference under 0.01 levels,
     far tighter than tests/test_fullres.py's _agree (1% over 3 levels,
-    1.5). Measured over all 12 cases: no pixel more than 1 level apart,
-    mean at most 1.4e-4 (float sums in another order flip a rounding at
-    the uint8 cast)."""
+    1.5). Measured over the 12 cases without a stack: no pixel more than
+    1 level apart, mean at most 1.4e-4 (float sums in another order flip
+    a rounding at the uint8 cast). The cases with a stack pass
+    ``src_stack``: from fullres.prefetch_sources, or one 8 rows too tall
+    (stale, so the render packs the sources again); both also equal the
+    port's render without a stack, bit for bit."""
     full, params = preview_params
     pj, pt = params[cut, gain]
+    blend, _, stack = blend.partition("/")
     kw = dict(cut=cut, gain_compensation=gain)
     cj = dataclasses.replace(JConfig(**kw), blend=JBlending[blend])
     ct = dataclasses.replace(TConfig(**kw), blend=TBlending[blend])
     oj = np.asarray(jfull.render_full_dev(pj, cj, full, force_single=True))
     ot = tstitcher.render_full(pt, ct, full)
     _agree(oj, ot, max_frac=1e-4, max_mean=0.01, tol=1)
+    if stack:
+        src = tfull.prefetch_sources(pt, full)
+        assert tuple(src.shape) == (2, 272, 400, 3)
+        if stack == "stale_stack":
+            src = torch.zeros((2, 280, 400, 3), dtype=torch.uint8)
+        os_ = tstitcher.render_full(pt, ct, full, src_stack=src)
+        assert np.array_equal(os_, ot)
 
 
 def test_chunked_equals_unchunked(preview_params, monkeypatch):

@@ -94,8 +94,8 @@ _WORKER = textwrap.dedent("""
                adj_nmatch=np.array([len(adj.matches.get((i, j), ((),))[0])
                                     for i in range(4) for j in range(4)]))
 
-    # the BA over that adjacency at the default gate: every rank runs it
-    # whole
+    # the BA over that adjacency: every rank runs its share of the
+    # matches
     comp = connected_components(adj.adj)[0]
     trials = calls["sharded_trials"]
     whole = stitch.bundle_adjust_stitching(
@@ -104,10 +104,7 @@ _WORKER = textwrap.dedent("""
     out.update(whole_K=whole.K, whole_rot=whole.rot,
                whole_sharded_trials=np.array(calls["sharded_trials"] - trials))
 
-    # the whole stitch, preview and full-res, with the BA's matches split
-    # at this size too (by default a world splits them only from
-    # BA_SHARD_MIN_MATCHES a rank)
-    stitch.BA_SHARD_MIN_MATCHES = 0
+    # the whole stitch, preview and full-res
     pano = T.Panorama(paths, device="cpu").stitch(cfg)
     out.update(connected=np.array(pano.connected),
                K=pano.result.K, rot=pano.result.rot,
@@ -174,8 +171,8 @@ def world(tmp_path_factory):
 
 def test_world_ran_the_sharded_paths(world):
     """Both ranks ran the rank-sharded code: the feature all-gather, the
-    LM trials with the camera system all-reduced (the world lowers the
-    BA's gate to 0 matches a rank), the sharded multiband preview and the
+    LM trials with the camera system all-reduced (a world splits the BA's
+    matches at any size), the sharded multiband preview and the
     image-split full-res render; and both hold the same results, bit for
     bit."""
     _, _, (r0, r1), _ = world
@@ -188,20 +185,21 @@ def test_world_ran_the_sharded_paths(world):
             np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
 
 
-def test_ba_splits_matches_only_past_the_gate():
-    """stitch._ba_mesh: no world, or fewer than BA_SHARD_MIN_MATCHES
-    matches a rank, runs the whole BA on every rank (None); from the gate
-    on, the BA splits over the mesh. A 4-view stitch (a few thousand
-    matches) stays whole."""
+def test_ba_splits_matches_in_a_world_of_two_or_more():
+    """stitch._ba_mesh: no world, or a world of one rank, runs the
+    single-device BA (None); a world of two splits the matches over its
+    mesh at any count that divides, as the JAX package's stitch does: at
+    6,144 matches (slices 1 and 3's BA problems) and at the 1,024 of a
+    few-view stitch."""
     from simplepanorama_tpu_torch import stitch
     from simplepanorama_tpu_torch.parallel.mesh import Mesh
-    gate = stitch.BA_SHARD_MIN_MATCHES
-    assert gate >= 1 << 16
-    mesh = Mesh(group=None, size=2, rank=0, device=torch.device("cpu"))
-    assert stitch._ba_mesh(None, 1 << 30) is None
-    assert stitch._ba_mesh(mesh, 6144) is None
-    assert stitch._ba_mesh(mesh, 2 * gate - 512) is None
-    assert stitch._ba_mesh(mesh, 2 * gate) is mesh
+    one = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"))
+    two = Mesh(group=None, size=2, rank=0, device=torch.device("cpu"))
+    assert not hasattr(stitch, "BA_SHARD_MIN_MATCHES")
+    assert stitch._ba_mesh(None, 6144) is None
+    assert stitch._ba_mesh(one, 6144) is None
+    assert stitch._ba_mesh(two, 6144) is two
+    assert stitch._ba_mesh(two, 1024) is two
 
 
 def test_host_shard():
@@ -271,13 +269,14 @@ def test_adjacency_matches(world):
 
 
 def test_whole_ba_in_two_ranks_matches_one(world):
-    """Below the BA's gate (the default at this size) every rank of the
-    world runs the whole BA, with no sharded trial, and gets the port's
-    one-process result on the same adjacency: focals and rotations within
-    1e-5 (the world pads the match tables to 512 a rank)."""
+    """The BA over the adjacency in a world of two ranks splits its
+    matches (every trial sharded, at the default) and gets the port's
+    one-process result on the same adjacency: both ranks equal bit for
+    bit, focals and rotations within 1e-5 of one process's."""
     _, _, (r0, r1), single = world
-    assert int(r0["whole_sharded_trials"]) == 0
+    assert int(r0["whole_sharded_trials"]) >= 8
     np.testing.assert_array_equal(r0["whole_K"], r1["whole_K"])
+    np.testing.assert_array_equal(r0["whole_rot"], r1["whole_rot"])
     np.testing.assert_allclose(r0["whole_K"], single["whole"].K, rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(r0["whole_rot"], single["whole"].rot,

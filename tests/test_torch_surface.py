@@ -21,10 +21,6 @@ OMITTED = {
         "kernel 1, csrc/mincut.cu behind grid_mincut",
     ("ops/maxflow.py", "grid_mincut_pallas_tiled"):
         "kernel 2, csrc/mincut_tiled.cu behind grid_mincut_tiled",
-    # the full-res prefetch thread of the JAX package's pipeline.py, a
-    # workaround for the TPU's network link; ROADMAP.md: not ported by
-    # design
-    ("render/fullres.py", "prefetch_sources"): "the full-res prefetch",
     # utils/transfer.py, concurrent slab fetches over the TPU's network
     # link; ROADMAP.md: not ported by design
     ("utils/transfer.py", "fetch_slabs"): "utils/transfer.py",
