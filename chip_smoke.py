@@ -47,7 +47,9 @@ Phases, each printing one line per input:
           it: cli.main([dir, "--fast", "--timing", "--save-state", ...])
           (Lowe objective, default compositing), then cli.main(
           ["--from-state", ..., "--full-res", ...]); each command twice
-          (cold, warm), no min-cut launches;
+          (cold, warm), no min-cut launches; the warm stitch captures no
+          CUDA graph (it replays the BA programs the cold one left,
+          ba.program) and gives the cold one's cameras and preview bytes;
   kernel3 on the real BA problem of that stitch (its match tables at full
           capacity, 16 camera slots, the stitched cameras): the Lowe
           system and the relaxed one, held against the plain version and
@@ -64,6 +66,10 @@ Phases, each printing one line per input:
           schedules against slice 2's single-device render; the
           column-sharded min-cut on slice 1's first seam graph against
           grid_mincut_ref and kernel 1;
+  ba_cache the process's BA program cache (ba.program) on the BA problems
+          of slices 1 and 3 padded to one bucket: the kept program on one,
+          the other, the first again, each run equal bit for bit to a
+          fresh LMProgram's, one capture in all;
   hostcut render/graphcut.graph_cut, the per-image host loop, on slice 1's
           blocks on the card: kernel 1 once per cut, seams against the
           device chain's;
@@ -73,10 +79,13 @@ Phases, each printing one line per input:
           single-card run; with one card a line says it was skipped;
   ba      the BA problems of slice 1 (relaxed) and slice 3 (Lowe) again
           through stitch.bundle_adjust_stitching, fused=False (eager
-          trials) and fused=True (each bucket's trial a CUDA graph) in
-          turns, two of each: walls, LM trials, host reads, graphs,
-          kernel-3 launches, the cameras of the two, the device's busy
-          share (torch.profiler), kernel 3 at each bucket;
+          trials) and fused=True (each bucket's trial a CUDA graph): one
+          eager run, two cold graph runs (kept programs released first),
+          then one warm graph run (no capture, the cold run's bits) and
+          the memory the kept programs hold: walls, LM trials,
+          host reads, graphs, kernel-3 launches, the cameras of the two,
+          the device's busy share (torch.profiler), kernel 3 at each
+          bucket;
   slice5  the little planet: the slice-3 loop through
           Panorama(paths, device="cuda").stitch(Config(proj=
           STEREOGRAPHIC)) (fix_center on, as by default), get_preview()
@@ -87,9 +96,18 @@ Phases, each printing one line per input:
           and kernel 1 against grid_mincut_ref on the first seam graph
           of that re-composite (the sten-fixed blocks, over kernel 1's
           residency limit: its tiled route);
+  options the slice-3 loop through Panorama(...).stitch(Config(proj=
+          CYLINDRICAL, cut=True, gain_compensation=True, bands=3)), then
+          set_config on the same BA result for SIMPLE_BLEND, NO_BLEND
+          without seams, straighten=False with blend_intensity=False, and
+          the little planet with LINEAR_SCALING: previews, full-res and
+          the CPU's previews from the same BA result;
   stream  load + keypoints of the loops of slices 1, 2 and 3 through
           the list path (every image decoded, then SIFT) and through the
           streaming decode, in turns, with SIFT's peak device memory;
+  sift_oom SIFT of slice 2's loop with a budget of 6 images a chunk, then
+          under torch.cuda.set_per_process_memory_fraction: the chunk
+          halves until it fits, the features equal bit for bit;
   cpu_vs_card  4 views of 640 px (preview 320 px) through the port on
           "cpu" and "cuda", with graph-cut seams and with the Lowe
           objective: previews and full-res panoramas; and the little
@@ -107,6 +125,7 @@ outlive its time limit).
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -561,6 +580,13 @@ def _device_ms_by_kernel(torch, fn, args, reps=2):
     return out
 
 
+def _private_pool_bytes(torch):
+    """Bytes the caching allocator holds in private pools (those of CUDA
+    graphs), from its segment snapshot."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
 @contextlib.contextmanager
 def _count_lm(stitch):
     """Count what the incremental bundle adjustment runs while the block
@@ -569,10 +595,12 @@ def _count_lm(stitch):
     accepted steps, trials executed (the warm-up before a capture and the
     no-op trials after a run's end included: kernel 3 launches once per
     executed trial), host reads of the termination flag, CUDA graphs
-    captured and the host seconds spent capturing."""
+    captured and the host seconds spent capturing (0 and 0.0 when every
+    bucket's program was kept from an earlier stitch: ba.program), and
+    the last LM run's error."""
     counts = {"lm_runs": 0, "lm_trials": 0, "lm_accepted": 0,
               "trials_executed": 0, "host_reads": 0, "graphs": 0,
-              "capture_s": 0.0}
+              "capture_s": 0.0, "lm_error": None}
     chunk = stitch._lm_chunk
 
     def counted(*a, **kw):
@@ -584,6 +612,7 @@ def _count_lm(stitch):
         counts["host_reads"] += c.reads
         counts["graphs"] += c.graphs
         counts["capture_s"] += c.capture_s
+        counts["lm_error"] = float(c.error)
         return cams, c
     stitch._lm_chunk = counted
     try:
@@ -815,7 +844,226 @@ def _slice5(torch, paths, f_true, tmp, card):
                            f"{cropped}, undo {undone}, redo {redone}, "
                            f"save {saved_ok}, saved {saved.shape} vs "
                            f"get_panorama(roi) {want_shape}")
-    return launches5, err5, launches5_k3
+    return launches5, err5, launches5_k3, pano.result
+
+
+def _disk_coverage(img):
+    """Share of the ellipse inscribed in the preview's nonzero bounding
+    box that is filled: the coverage of a little planet, a disk that
+    fills at most pi / 4 of its box."""
+    nz = img.max(axis=2) > 0
+    ys, xs = np.nonzero(nz)
+    box = nz[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+    h, w = box.shape
+    v, u = np.mgrid[0:h, 0:w]
+    inside = (((v + 0.5) / h - 0.5) ** 2 + ((u + 0.5) / w - 0.5) ** 2
+              <= 0.25)
+    return float(box[inside].mean())
+
+
+def _options_phase(torch, paths, f_true, card, slice5_result):
+    """The compositing options on the card: the slice-3 loop (12 views of
+    1400 px, previews at 700) through Panorama(paths, device="cuda")
+    .stitch(Config(proj=CYLINDRICAL, cut=True, gain_compensation=True,
+    bands=3)) (relaxed BA, graph-cut seams: kernel 1 once a cut),
+    get_preview() and get_panorama(); then, on the same BA result,
+    set_config, get_preview() and get_panorama() for SIMPLE_BLEND,
+    NO_BLEND with cut_seams=False (both cylindrical), spherical with
+    straighten=False and blend_intensity=False, and the little planet
+    with LINEAR_SCALING. Each configuration's preview is also made on
+    the CPU from the same BA result (convert.stitch_result_from_numpy:
+    the port's set_config and render_preview with device="cpu"; for the
+    graph cut, with the card's seams). One
+    line a configuration; gates: coverage > 0.9 (of the box, or of the
+    disk inscribed in it for the little planet, whose centre must not
+    stay dark), full-res about 2x the preview with NCC >= 0.95 in the
+    common footprint (SLICE5_FIXED_NCC_GATE for the little planet), the
+    card's preview against the CPU's NCC >= 0.98, kernel 1 once a cut
+    on the stitch and kernel 3 once per LM trial executed. Returns the
+    stitch's min-cut launches (kernel 1, kernel 2) and kernel 3's."""
+    import cv2
+    from simplepanorama_tpu_torch import (Blending, Config, Panorama,
+                                          Projection, Stretch, stitch,
+                                          stitcher)
+    from simplepanorama_tpu_torch.convert import stitch_result_from_numpy
+    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+    cyl = Projection.CYLINDRICAL
+    options = [     # (name, Config): the first is the stitch's
+        ("cylindrical_cut_gain_bands3",
+         Config(proj=cyl, cut=True, gain_compensation=True, bands=3)),
+        ("cylindrical_simple_blend",
+         Config(proj=cyl, blend=Blending.SIMPLE_BLEND)),
+        ("cylindrical_no_blend_no_cut_seams",
+         Config(proj=cyl, blend=Blending.NO_BLEND, cut_seams=False)),
+        ("spherical_no_straighten_no_blend_intensity",
+         Config(proj=Projection.SPHERICAL, straighten=False,
+                blend_intensity=False)),
+        ("stereographic_linear_scaling",
+         Config(proj=Projection.STEREOGRAPHIC,
+                stretching=Stretch.LINEAR_SCALING))]
+    _reset_launches(maxflow)
+    ba_kernel.assemble_streams.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _count_lm(stitch) as lm:
+        pano = Panorama(paths, device="cuda").stitch(options[0][1])
+    res = pano.result
+    comp_imgs = [pano.images.img_data[g] for g in res.nodes]
+    n_cuts = len(res.order) - 1
+    focals = res.K[:, 0, 0]
+    for k, (name, cfg) in enumerate(options):
+        if k:
+            _reset_launches(maxflow)
+            ba_kernel.assemble_streams.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pano.set_config(cfg)
+        preview = pano.get_preview()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(maxflow)
+        launches_k3 = ba_kernel.assemble_streams.launches
+        if not k:
+            launches_stitch, k3 = launches, launches_k3
+        t0 = time.perf_counter()
+        full = pano.get_panorama()
+        torch.cuda.synchronize()
+        full_wall = time.perf_counter() - t0
+        planet = cfg.proj == Projection.STEREOGRAPHIC
+        cov = _disk_coverage(preview) if planet else _coverage(preview)
+        small = cv2.resize(full, (preview.shape[1], preview.shape[0]),
+                           interpolation=cv2.INTER_AREA)
+        ncc_full = _ncc_common(preview, small)
+        t0 = time.perf_counter()
+        # with cut=True the CPU takes the card's seams: its host Dinic
+        # loop took 268 s on the 12 blocks of 700-px views (the seams are
+        # held by the kernel lines and the hostcut phase)
+        params = stitcher.set_config(
+            stitch_result_from_numpy(res), comp_imgs,
+            dataclasses.replace(cfg, cut=False), device="cpu")
+        if cfg.cut:
+            params.state.seam_masks = pano.stitch_params.state \
+                .seam_masks.cpu()
+        cpu_preview = stitcher.render_preview(params, cfg)
+        cpu_wall = time.perf_counter() - t0
+        # pixel for pixel on one canvas, else the best over shifts
+        ncc_cpu, shift = ((_ncc(cpu_preview, preview), (0, 0))
+                          if cpu_preview.shape == preview.shape
+                          else _ncc_aligned(cpu_preview, preview))
+        extra = {}
+        if not k:
+            extra = dict(lm, focal_true=f_true,
+                         focals=[float(x) for x in focals], cuts=n_cuts,
+                         cameras_equal_slice5_bits=bool(
+                             np.array_equal(res.K, slice5_result.K)
+                             and np.array_equal(res.rot,
+                                                slice5_result.rot)))
+        if planet:
+            extra.update(center_dark=_center_dark(preview),
+                         sten_circle=pano.stitch_params.sten_circle)
+        _line("options", config=name, preview_shape=list(preview.shape),
+              full_shape=list(full.shape), coverage=cov,
+              full_vs_preview_ncc=ncc_full, cpu_vs_card_ncc=ncc_cpu,
+              cpu_vs_card_shift=list(shift),
+              cpu_shape=list(cpu_preview.shape),
+              wall_s=wall, full_wall_s=full_wall, cpu_wall_s=cpu_wall,
+              mincut_launches=list(launches),
+              assemble_streams_launches=launches_k3, **extra, device=card)
+        gate = SLICE5_FIXED_NCC_GATE if planet else 0.95
+        if not np.isfinite(preview).all() or cov <= 0.9:
+            raise RuntimeError(f"options {name}: coverage {cov}")
+        if planet and extra["center_dark"] >= 0.10:
+            raise RuntimeError(f"options {name}: centre-dark "
+                               f"{extra['center_dark']}")
+        if (abs(full.shape[0] - 2 * preview.shape[0]) > 8
+                or abs(full.shape[1] - 2 * preview.shape[1]) > 8
+                or ncc_full < gate):
+            raise RuntimeError(f"options {name}: full-res {full.shape} vs "
+                               f"preview {preview.shape}, NCC {ncc_full}")
+        if ncc_cpu < 0.98:
+            raise RuntimeError(f"options {name}: CPU and card previews NCC "
+                               f"{ncc_cpu}")
+        if k and (launches != (0, 0) or launches_k3):
+            raise RuntimeError(f"options {name}: min-cut launches "
+                               f"{launches}, kernel 3 {launches_k3}, "
+                               "without cut or BA")
+        del preview, full, small, params, cpu_preview
+    if tuple(pano.connected) != (12, 12):
+        raise RuntimeError(f"options connected {pano.connected}")
+    if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
+        raise RuntimeError(f"options focals {focals} vs true {f_true}")
+    if launches_stitch != (n_cuts, 0):
+        raise RuntimeError(f"options: min-cut launches {launches_stitch} "
+                           f"for {n_cuts} cuts, wanted kernel 1 once a cut")
+    _check_kernel3_path("options", k3, lm)
+    return launches_stitch, k3
+
+
+def _sift_oom_phase(torch, views, card, budget=40_000_000_000,
+                    cap=24_000_000_000):
+    """SIFT of slice 2's loop (12 views of 2800 px at init_size 1400,
+    the list path) with SPT_SIFT_MEM_BUDGET at ``budget`` bytes (6 images
+    a chunk by the memory model) without a cap, then under
+    torch.cuda.set_per_process_memory_fraction for ``cap`` bytes, where a
+    chunk of that size runs out of memory: the chunk must halve until it
+    fits (features._SIFT_CHUNK_CACHE remembers the size that ran), and
+    the features must equal the uncapped run's bit for bit. The fraction
+    is set back to 1 afterwards. Prints one line."""
+    from simplepanorama_tpu_torch import Config, ba, features
+    from simplepanorama_tpu_torch.io import ImageSet
+    files = sorted(os.path.join(views, f) for f in os.listdir(views))
+    cfg = Config(init_size=1400)
+    images = ImageSet(files)
+    images.load_resized(cfg.init_size, cfg.threads)
+    imgs = images.img_data
+    Hp, Wp = features._pad8([im.shape[:2] for im in imgs])
+    key = features._shape_key(Hp, Wp, cfg)
+    old = os.environ.get("SPT_SIFT_MEM_BUDGET")
+    os.environ["SPT_SIFT_MEM_BUDGET"] = str(budget)
+    features._SIFT_CHUNK_CACHE.pop(key, None)
+    runs = {}
+    try:
+        chunk = features._sift_chunk_size(len(imgs), Hp, Wp, cfg)
+        ba.release_programs()
+        for name in ("uncapped", "capped"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            total = torch.cuda.get_device_properties(0).total_memory
+            if name == "capped":
+                torch.cuda.set_per_process_memory_fraction(cap / total)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                feats = features.extract_features(imgs, cfg, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+            runs[name] = (wall, torch.cuda.max_memory_allocated(),
+                          features._SIFT_CHUNK_CACHE.get(key, chunk),
+                          [(f.xy, f.size, f.response, f.desc, f.valid)
+                           for f in feats])
+            del feats
+    finally:
+        if old is None:
+            os.environ.pop("SPT_SIFT_MEM_BUDGET")
+        else:
+            os.environ["SPT_SIFT_MEM_BUDGET"] = old
+    equal = all(np.array_equal(a, b)
+                for fa, fb in zip(runs["uncapped"][3], runs["capped"][3])
+                for a, b in zip(fa, fb))
+    ran = runs["capped"][2]
+    _line("sift_oom", views=len(imgs), padded=[Hp, Wp], budget=budget,
+          budget_chunk=chunk, cap=cap, chunk_ran=ran,
+          uncapped_chunk=runs["uncapped"][2], equal_bits=equal,
+          keypoints=int(sum(f[4].sum() for f in runs["capped"][3])),
+          walls_s={k: v[0] for k, v in runs.items()},
+          peaks={k: v[1] for k, v in runs.items()}, device=card)
+    if not (chunk > 1 and runs["uncapped"][2] == chunk and ran < chunk
+            and runs["capped"][1] <= cap and equal):
+        raise RuntimeError(f"sift_oom: chunk {chunk} under a {cap}-byte cap "
+                           f"ran at {ran}, peak {runs['capped'][1]}, "
+                           f"features equal: {equal}")
 
 
 def _stream_phase(torch, loops, card):
@@ -881,14 +1129,19 @@ def _sten_cpu_vs_card(torch, tmp, card):
         raise RuntimeError("CPU and card little planets disagree")
 
 
+class _WindowDone(Exception):
+    """Raised in _busy_share's wrapped _lm_chunk once its window has
+    closed."""
+
+
 def _busy_share(torch, stitch, run, chunks):
     """The device's busy share over the first ``chunks`` chunks of the BA
     that ``run()`` drives: torch.profiler (device activity only) on from
     the first chunk's start to the end of chunk ``chunks`` (a window,
     because the profiler's post-processing of a whole eager BA, ~300k
-    kernels and their host ops, takes minutes). Returns (device seconds in CUDA kernels and
-    copies, window seconds); device seconds None when the profiler
-    records no device time."""
+    kernels and their host ops, takes minutes); the BA stops there.
+    Returns (device seconds in CUDA kernels and copies, window seconds);
+    device seconds None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CUDA])
     chunk = stitch._lm_chunk
@@ -905,10 +1158,13 @@ def _busy_share(torch, stitch, run, chunks):
             torch.cuda.synchronize()
             window["t1"] = time.perf_counter()
             prof.stop()
+            raise _WindowDone
         return out
     stitch._lm_chunk = profiled
     try:
         run()
+    except _WindowDone:
+        pass
     finally:
         stitch._lm_chunk = chunk
     us = sum(getattr(e, "self_device_time_total",
@@ -917,37 +1173,48 @@ def _busy_share(torch, stitch, run, chunks):
     return (us / 1e6 if us > 0 else None), window["t1"] - window["t0"]
 
 
-# chunks of the schedule in the profiled window of the BA's busy share:
-# a fifth of a 12-view schedule's, with its first capture for the graphs
-BUSY_CHUNKS = 2
+# chunks of the schedule in the profiled window of the BA's busy share,
+# graph and eager: a fifth of a 12-view schedule's, with its first
+# capture for the graphs; the eager window is one chunk, since the
+# profiler's processing of the eager trials' kernels and launches took
+# ~30 s a problem for two
+BUSY_CHUNKS = {True: 2, False: 1}
 
 
 def _ba_phase(torch, problems, card):
     """Each recorded BA problem {name: (comp, adjres, sizes, focal, cfg)}
     through stitch.bundle_adjust_stitching on the card with fused=False
-    (eager trials) and fused=True (the buckets' CUDA graphs), in turns,
-    two of each (eager, graph, graph, eager); one line per
-    run, then one run of each with the device's busy share measured over
-    its first chunks (torch.profiler), and
-    kernel 3 at each capacity bucket of the schedule (the streams of that
-    bucket's last state) against its plain version. Checks: the same LM
-    trials and accepted steps in every run, cameras within 1e-5 relative
-    between the two, kernel 3 launched once per trial executed, one graph
-    per bucket. Host syncs raise inside every trial of both (the LM sets
-    torch.cuda.set_sync_debug_mode("error") around them). Returns
-    {name: {"launches": kernel-3 launches of the runs, "buckets": the
-    kernel3 results of the largest bucket}}."""
+    (eager trials) and fused=True (the buckets' CUDA graphs): one eager
+    run, then two graph runs, each cold (the process's kept programs
+    released first, ba.release_programs), then one warm graph run on the
+    programs the cold one left; one line per
+    run, the device memory the kept programs hold (reserved before and
+    after release_programs, and in graphs' private pools), then one run
+    of each with the device's busy share measured over its first chunks
+    (torch.profiler; the graph run cold), and kernel 3 at each capacity
+    bucket of the schedule (the streams of that bucket's last state)
+    against its plain version. Checks: the same LM trials and accepted
+    steps in every run, cameras within 1e-5 relative between the two,
+    kernel 3 launched once per trial executed, one graph per bucket in a
+    cold run, none in the warm run, whose trials, cameras and error
+    equal the cold run's bit for bit. Host syncs raise inside every
+    trial of both (the LM sets torch.cuda.set_sync_debug_mode("error")
+    around them). Returns {name: {"launches": kernel-3 launches of the
+    runs, "buckets": the kernel3 results of the largest bucket}}."""
     from simplepanorama_tpu_torch import ba, stitch
     from simplepanorama_tpu_torch.ops import ba_kernel
     out = {}
     for name, (comp, adjres, sizes, focal, cfg) in problems.items():
-        ref = graphs = None
+        ref = graphs = cold = None
         launches = 0
-        walls = {False: [], True: []}
+        walls = {False: [], True: [], "warm": []}
         chunks = []
-        for fused in (False, True, True, False):
+        for fused, warm in ((False, False), (True, False), (True, False),
+                            (True, True)):
             ba_kernel.assemble_streams.launches = 0
             record = fused and not walls[True]    # the first graph run
+            if fused and not warm:
+                ba.release_programs()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with _count_lm(stitch) as lm:
@@ -967,23 +1234,46 @@ def _ba_phase(torch, problems, card):
                     stitch._lm_chunk = counted
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            walls[fused].append(wall)
+            walls["warm" if warm else fused].append(wall)
             k3 = ba_kernel.assemble_streams.launches
             launches += k3
             if ref is None:
                 ref = (res, lm)
             if fused and graphs is None:
                 graphs = lm["graphs"]
+                cold = (res, lm)
             df = float(np.max(np.abs(res.K[:, 0, 0] / ref[0].K[:, 0, 0]
                                       - 1.0)))
             drot = float(np.max(np.abs(res.rot - ref[0].rot)))
-            _line("ba", problem=name, fused=fused, fast=bool(cfg.fast),
-                  wall_s=wall, **lm,
+            extra = {}
+            if warm:
+                # the memory the kept programs hold, and what releasing
+                # them frees
+                torch.cuda.synchronize()
+                held = (torch.cuda.memory_reserved(), _private_pool_bytes(
+                    torch))
+                ba.release_programs()
+                torch.cuda.empty_cache()
+                extra = dict(
+                    cold_equal_bits=bool(
+                        np.array_equal(res.K, cold[0].K)
+                        and np.array_equal(res.rot, cold[0].rot)
+                        and lm["lm_error"] == cold[1]["lm_error"]),
+                    kept_programs_memory={
+                        "reserved_before_release": held[0],
+                        "private_pools_before_release": held[1],
+                        "reserved_after_release": (
+                            torch.cuda.memory_reserved()),
+                        "private_pools_after_release": _private_pool_bytes(
+                            torch)})
+            _line("ba", problem=name, fused=fused, warm=warm,
+                  fast=bool(cfg.fast), wall_s=wall, **lm,
                   ms_per_trial=wall * 1e3 / max(1, lm["lm_trials"]),
                   assemble_streams_launches=k3, sync_debug="error",
                   read_every=ba.READ_EVERY,
                   focal_rel_diff_vs_first=df, rot_diff_vs_first=drot,
-                  focals=[float(x) for x in res.K[:, 0, 0]], device=card)
+                  focals=[float(x) for x in res.K[:, 0, 0]], **extra,
+                  device=card)
             if (lm["lm_runs"], lm["lm_trials"], lm["lm_accepted"]) != (
                     ref[1]["lm_runs"], ref[1]["lm_trials"],
                     ref[1]["lm_accepted"]):
@@ -993,15 +1283,26 @@ def _ba_phase(torch, problems, card):
                 raise RuntimeError(f"ba {name}: fused={fused} cameras differ "
                                    f"from the first run's by {df} (focal) "
                                    f"and {drot} (rotation)")
+            if fused and not warm and lm["graphs"] != graphs:
+                raise RuntimeError(f"ba {name}: a cold graph run captured "
+                                   f"{lm['graphs']} graphs, the first "
+                                   f"{graphs}")
+            if warm and (lm["graphs"] != 0 or lm["capture_s"] != 0.0
+                         or not extra["cold_equal_bits"]):
+                raise RuntimeError(f"ba {name}: the warm graph run captured "
+                                   f"{lm['graphs']} graphs, equal to the "
+                                   f"cold run: {extra['cold_equal_bits']}")
             _check_kernel3_path(f"ba {name}", k3, lm)
         busy = {}
         for fused in (False, True):
+            ba.release_programs()    # the graph run's window holds a capture
             dev_s, wall = _busy_share(
                 torch, stitch, lambda: stitch.bundle_adjust_stitching(
                     comp, adjres, sizes, focal, cfg, device="cuda",
-                    fused=fused), BUSY_CHUNKS)
+                    fused=fused), BUSY_CHUNKS[fused])
             busy["graph" if fused else "eager"] = {
-                "chunks": BUSY_CHUNKS, "device_s": dev_s, "window_s": wall,
+                "chunks": BUSY_CHUNKS[fused], "device_s": dev_s,
+                "window_s": wall,
                 "busy_share": dev_s / wall if dev_s else None}
         # kernel 3 at each bucket the graph run used: the bucket's last
         # chunk's final state
@@ -1021,8 +1322,8 @@ def _ba_phase(torch, problems, card):
                 active_matches=int(active_m.sum()))
         _line("ba", problem=name, summary=True,
               eager_walls_s=walls[False], graph_walls_s=walls[True],
-              busy=busy, buckets=[list(k) for k in sorted(buckets)],
-              device=card)
+              warm_graph_walls_s=walls["warm"], busy=busy,
+              buckets=[list(k) for k in sorted(buckets)], device=card)
         if graphs != len(buckets):
             raise RuntimeError(f"ba {name}: {graphs} graphs captured for "
                                f"{len(buckets)} capacity buckets")
@@ -1270,6 +1571,78 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
     return {"assemble_streams": launches, "mincut": launches_mc}
 
 
+def _ba_cache_phase(torch, card, ba_problems):
+    """The process's program cache (ba.program) across two BA problems:
+    ``ba_problems`` {name: (cams, data, active, fast, lambda)} (the BA
+    problems of slices 1 and 3, as the dist phase takes them), padded to
+    common shapes (invalid match slots, pair rows of camera 0), so that
+    one kept program serves both. For each objective: the kept program
+    on problem A, then B, then A, each run from _perturbed cameras;
+    every run equal bit for bit to a fresh LMProgram's run of the same
+    problem (trials, accepted steps, error and cameras), one capture in
+    all, kernel 3 launched once per trial executed, and A's and B's runs
+    not equal. Prints one line per objective; returns kernel 3's launches
+    on the kept program."""
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.ops import ba_kernel
+    M = max(d.mi.shape[0] for _, d, _, _, _ in ba_problems.values())
+    P = max(d.pi.shape[0] for _, d, _, _, _ in ba_problems.values())
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros((n - t.shape[0], *t.shape[1:]))])
+    padded = {}
+    for name, (cams, data, active, _, lam) in ba_problems.items():
+        data = ba.BAData(*(pad(t, P if k in ("pi", "pj") else M)
+                           for k, t in data._asdict().items()))
+        cams = _perturbed(torch, cams._replace(b=pad(cams.b, M)), active)
+        padded[name] = (cams, data, active, lam)
+    names = list(padded)
+    launches = 0
+    for fast in (False, True):
+        ba.release_programs()
+        runs, out, programs = [], {}, set()
+        for name in (names[0], names[1], names[0]):
+            cams, data, active, lam = padded[name]
+            n_cams = cams.focal.shape[0]
+            prog = ba.program(data, n_cams, fast)
+            programs.add(id(prog))
+            ba_kernel.assemble_streams.launches = 0
+            got, executed, _ = prog.run(cams, active, lam)
+            torch.cuda.synchronize()
+            k3 = ba_kernel.assemble_streams.launches
+            launches += k3
+            fresh = ba.LMProgram(data, n_cams, fast)
+            try:
+                want = fresh.run(cams, active, lam)[0]
+            finally:
+                fresh.close()
+            same = bool(all(torch.equal(a, b) for a, b in
+                            zip((*got.cams, got.error, got.n_iter,
+                                 got.n_accepted),
+                                (*want.cams, want.error, want.n_iter,
+                                 want.n_accepted))))
+            runs.append({"problem": name, "trials": int(got.n_iter),
+                         "error": float(got.error), "trials_executed":
+                         executed, "assemble_streams_launches": k3,
+                         "equal_to_fresh_program_bits": same})
+            if name in out and not torch.equal(out[name].error, got.error):
+                same = runs[-1]["equal_to_fresh_program_bits"] = False
+            out[name] = got
+            if not same or k3 != executed:
+                raise RuntimeError(f"ba_cache: the kept program on {name} "
+                                   f"(fast={fast}) gave {runs[-1]}")
+        a, b = (out[n] for n in names)
+        differ = not torch.equal(a.cams.focal, b.cams.focal)
+        _line("ba_cache", fast=fast, matches=M, pair_rows=P,
+              programs=len(programs), kept=len(ba._PROGRAMS), runs=runs,
+              problems_differ=differ, device=card)
+        if len(programs) != 1 or not differ:
+            raise RuntimeError(f"ba_cache: {len(programs)} programs for one "
+                               f"key, problems differ: {differ}")
+    ba.release_programs()
+    return launches
+
+
 def _hostcut_phase(torch, card, pano1):
     """render/graphcut.graph_cut, the per-image host loop, on slice 1's
     blocks on the card (the per-image crops of its state, the BA's
@@ -1422,11 +1795,14 @@ def main():
 
         # ---- kernel 1 vs its plain version ----
         errs1 = []
-        for name, graph in (("grid48x160", grid),
-                            ("seam700", _seam_graph(torch, tmp, 700))):
+        # the plain version at the seam block is timed on its one
+        # checking run, as kernel 2's is (five repeats took 14 s)
+        for name, graph, plain_reps in (
+                ("grid48x160", grid, 5),
+                ("seam700", _seam_graph(torch, tmp, 700), 0)):
             err, ms_k, ms_r, stats = _solve_pair(
                 torch, maxflow, name, graph, maxflow.grid_mincut,
-                maxflow.grid_mincut_ref, 5, 5, card, "kernel")
+                maxflow.grid_mincut_ref, 5, plain_reps, card, "kernel")
             errs1.append(err)
         # the seam graph's times and bound are reported
         timing1 = (ms_k, ms_r, _mincut_bound(graph[3], stats))
@@ -1658,6 +2034,7 @@ def main():
         prev_p = os.path.join(tmp, "slice3_preview.jpg")
         full_p = os.path.join(tmp, "slice3_full.jpg")
         runs = {}
+        stitched = {}    # run -> (cameras K, rotations, preview bytes)
         tstitch.bundle_adjust_stitching = recording("slice3_lowe")
         try:
             for run in ("cold", "warm"):
@@ -1667,6 +2044,10 @@ def main():
                             views3, "--fast", "--timing", "--save-state",
                             state, "-o", prev_p])
                 runs["stitch_" + run].update(lm3)
+                saved = load_stitch_state(state)
+                with open(prev_p, "rb") as fh:
+                    stitched[run] = (np.asarray(saved.K),
+                                     np.asarray(saved.rot), fh.read())
                 runs["full_" + run] = _cli_run(
                     torch, cli, timer, maxflow, ba_kernel, [
                         "--from-state", state, "--full-res", "-o", full_p])
@@ -1682,10 +2063,22 @@ def main():
                            interpolation=cv2.INTER_AREA)
         ncc_full = _ncc_common(preview, small)
         focal_gate = SLICE3_FOCAL_GATE
+        # the warm stitch replays the programs the cold one captured
+        warm_same = {
+            "cameras_bits": bool(
+                np.array_equal(stitched["cold"][0], stitched["warm"][0])
+                and np.array_equal(stitched["cold"][1],
+                                   stitched["warm"][1])),
+            "preview_bytes": stitched["cold"][2] == stitched["warm"][2]}
         _line("slice3", connected=list(connected3), focal_true=f_true,
               focals=[float(x) for x in focals], focal_gate=focal_gate,
               preview_shape=list(preview.shape), coverage=cov,
               full_shape=list(full.shape), full_vs_preview_ncc=ncc_full,
+              warm_equals_cold=warm_same,
+              graphs={r: runs["stitch_" + r]["graphs"]
+                      for r in ("cold", "warm")},
+              capture_s={r: runs["stitch_" + r]["capture_s"]
+                         for r in ("cold", "warm")},
               runs=runs, device=card)
         if connected3 != (12, 12):
             raise RuntimeError(f"slice3 connected {connected3}")
@@ -1701,6 +2094,16 @@ def main():
             raise RuntimeError(f"slice3 full-res vs preview NCC {ncc_full}")
         if any(r["mincut_launches"] != [0, 0] for r in runs.values()):
             raise RuntimeError("slice3 (cut=False) launched a min-cut")
+        if runs["stitch_cold"]["graphs"] < 1 or \
+                runs["stitch_warm"]["graphs"] != 0 or \
+                runs["stitch_warm"]["capture_s"] != 0.0 or \
+                not all(warm_same.values()):
+            raise RuntimeError(
+                "slice3: the warm stitch captured "
+                f"{runs['stitch_warm']['graphs']} graphs in "
+                f"{runs['stitch_warm']['capture_s']} s (the cold one "
+                f"{runs['stitch_cold']['graphs']}), equal to the cold "
+                f"stitch: {warm_same}")
         for run in ("cold", "warm"):
             _check_kernel3_path("slice3 " + run, runs["stitch_" + run][
                 "assemble_streams_launches"], runs["stitch_" + run])
@@ -1778,6 +2181,7 @@ def main():
                                     seam1)
         _line("dist", summary=True, wall_s=time.perf_counter() - t0,
               launches=launches_dist, device=card)
+        launches_cache = _ba_cache_phase(torch, card, dist_problems)
         launches_hostcut = _hostcut_phase(torch, card, pano1)
         del pano1, pano2, dist_problems, seam1
         _two_card_phase(torch, card, tmp, paths2, slice2_single)
@@ -1790,14 +2194,22 @@ def main():
             errs3.append(r["largest"][1])
         timing3 = ba_runs["slice1_relaxed"]["largest"][2:5]
 
-        launches5, err5, launches5_k3 = _slice5(torch, paths, f_true, tmp,
-                                                card)
+        launches5, err5, launches5_k3, res5 = _slice5(torch, paths, f_true,
+                                                      tmp, card)
         errs1.append(err5)
+
+        # ---- the compositing options on slice 3's loop ----
+        launches_opt, launches_opt_k3 = _options_phase(torch, paths, f_true,
+                                                       card, res5)
+        del res5
 
         _stream_phase(torch, (("slice", os.path.join(tmp, "loop"), 700),
                               ("slice2", os.path.join(tmp, "loop2800"),
                                1400),
                               ("slice3", views3, 700)), card)
+
+        # ---- SIFT chunks that halve under a memory cap ----
+        _sift_oom_phase(torch, os.path.join(tmp, "loop2800"), card)
 
         # ---- the same 4 views through the port on the CPU and the card ----
         paths4, _, _ = fkh360_views(4, 640, yaw_step_deg=20.0, hfov_deg=45.0,
@@ -1840,11 +2252,13 @@ def main():
          "route": "cuda",
          "source": sources["grid_mincut"],
          "replaces": "simplepanorama_tpu/ops/maxflow.py:366",
-         "launches": launches1[0],
+         "launches": launches1[0] + launches_opt[0],
          # its launches on each path that runs it (slice 5: the cut=True
-         # re-composite of the little planet)
+         # re-composite of the little planet; options: the cut=True
+         # cylindrical stitch)
          "launches_by_path": {"slice": launches1[0], "slice2": launches2[0],
                               "slice5": launches5[0],
+                              "options": launches_opt[0],
                               "hostcut": launches_hostcut[0],
                               "dist": launches_dist["mincut"][0]},
          # largest |cut value (kernel) - cut value (plain)| over its inputs
@@ -1861,6 +2275,7 @@ def main():
          "launches": launches2[1],
          "launches_by_path": {"slice": launches1[1], "slice2": launches2[1],
                               "slice5": launches5[1],
+                              "options": launches_opt[1],
                               "hostcut": launches_hostcut[1],
                               "dist": launches_dist["mincut"][1]},
          "max_abs_err": max(errs2),
@@ -1874,14 +2289,18 @@ def main():
          "source": sources["assemble_streams"],
          "replaces": "simplepanorama_tpu/ops/ba_kernel.py:140",
          # once per LM trial executed: its launches in the stitches of
-         # slices 1, 2 and 5, in slice 3's four CLI commands and in the
-         # graphed sharded LM of the dist phase (counted on the replays)
+         # slices 1, 2 and 5 and of the options phase, in slice 3's four
+         # CLI commands and in the graphed sharded LM of the dist phase
+         # (counted on the replays, of kept programs too)
          "launches": launches1_k3 + launches2_k3 + launches3_path
-         + launches5_k3 + launches_dist["assemble_streams"],
+         + launches5_k3 + launches_opt_k3
+         + launches_dist["assemble_streams"],
          "launches_by_path": {"slice": launches1_k3, "slice2": launches2_k3,
                               "slice3": launches3_path,
                               "slice5": launches5_k3,
+                              "options": launches_opt_k3,
                               "dist": launches_dist["assemble_streams"],
+                              "ba_cache": launches_cache,
                               "hostcut": launches_hostcut[2],
                               "ba_phase": {k: v["launches"]
                                            for k, v in ba_runs.items()}},

@@ -18,16 +18,19 @@ the CPU), the solve, the back-substitution by gathers and the accept test,
 applied with torch.where alone. The host reads the termination flag once
 every READ_EVERY trials (``lm_run_eager``); on the card ``LMProgram``
 replays the trial as a CUDA graph between those reads, its all-reduces
-included when the matches are split across ranks. The per-pair H
-chain and its Jacobian come from torch.func.jacfwd + vmap over the
-realized camera pairs; the per-match table expansion is an index gather
-with an explicit clamp. Both objectives are ported: the relaxed one
-(fast=False) and Lowe's (fast=True), which keeps b = t fixed and solves
-U* da = e_A.
+included when the matches are split across ranks, and ``program`` keeps
+each single-card bucket's program for the process, as the JAX package's
+jit cache keeps its compiled LM (``release_programs`` drops them). The
+per-pair H chain and its Jacobian come from torch.func.jacfwd + vmap
+over the realized camera pairs; the per-match table expansion is an
+index gather with an explicit clamp. Both objectives are ported: the
+relaxed one (fast=False) and Lowe's (fast=True), which keeps b = t fixed
+and solves U* da = e_A.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import time
 from typing import NamedTuple, Optional
@@ -662,9 +665,15 @@ class LMProgram:
     Every value that changes between runs lives in a static device buffer
     written before the run (cameras, b, the active cameras and matches,
     lambda, the V-augment camera, the counters), so one graph serves every
-    run of the bucket. The first run's first trial runs eagerly on a side
-    stream (the warm-up that capture needs), then the trial is captured
-    with host syncs raising. Call ``close`` to release the graph and its
+    run of the bucket. The program owns copies of the match tables
+    (``data`` and the int32 ids derived from it), and ``load_data`` copies
+    another problem of the same shapes into them, so one graph also
+    serves every problem of the bucket (``program``, the process's cache).
+    What the graph bakes in is the shapes alone: M, P, ``n_cams``, the
+    objective, ``max_iter`` and the kernel's workspace, sized by M and
+    ``n_cams``. The first run's first trial runs eagerly on a side stream
+    (the warm-up that capture needs), then the trial is captured with
+    host syncs raising. Call ``close`` to release the graph and its
     memory pool.
 
     With a process ``group`` (the match-sharded BA, parallel.dist_ba),
@@ -681,15 +690,16 @@ class LMProgram:
                  max_iter: int = 50, read_every: int = READ_EVERY,
                  group=None):
         dev = data.mi.device
-        if dev.type != "cuda":
-            raise ValueError(f"LMProgram runs on a CUDA device, not {dev}")
         M = data.mi.shape[0]
         self.fast, self.read_every = fast, read_every
         i64 = dict(dtype=torch.int64, device=dev)
+        # the kernel's scratch on the card; elsewhere its plain version
+        ws = ba_kernel.workspace(M, n_cams, dev) if dev.type == "cuda" \
+            else None
         self.pb = lm_problem(
-            data, torch.zeros(n_cams, dtype=torch.bool, device=dev),
-            torch.zeros((), **i64), max_iter,
-            ba_kernel.workspace(M, n_cams, dev), group)
+            BAData(*(t.clone() for t in data)),
+            torch.zeros(n_cams, dtype=torch.bool, device=dev),
+            torch.zeros((), **i64), max_iter, ws, group)
         f = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
         self.st = LMState(
             cams=CamState(f(n_cams), f(n_cams, 2), f(n_cams, 3), f(M, 2)),
@@ -699,6 +709,21 @@ class LMProgram:
         self.graph = None
         self.capture_s = 0.0          # host seconds spent capturing
         self.launches_per_trial = 0   # kernel-3 launches in one trial
+
+    def load_data(self, data: BAData):
+        """Copy the match tables of another problem of the same shapes and
+        types into the program's buffers, in place; the graph replays on
+        them from the next run. The active matches follow at that run's
+        start (``_load``)."""
+        pb = self.pb
+        for name, dst, src in zip(BAData._fields, pb.data, data):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(
+                    f"{name}: {tuple(src.shape)} {src.dtype}, the program "
+                    f"holds {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+        pb.mi.copy_(pb.data.mi)
+        pb.mj.copy_(pb.data.mj)
 
     def _tensors(self, st: LMState):
         return (*st.cams, st.err, st.lam, st.it, st.strikes, st.n_acc)
@@ -727,6 +752,9 @@ class LMProgram:
             t.zero_()
 
     def _capture(self):
+        if self.pb.data.mi.device.type != "cuda":
+            raise ValueError("LMProgram captures on a CUDA device, not "
+                             f"{self.pb.data.mi.device}")
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -756,8 +784,9 @@ class LMProgram:
         if self.graph is None:
             self._capture()
             executed += 1
+        on_card = self.pb.data.mi.device.type == "cuda"
         while True:
-            with _device_trials(True):
+            with _device_trials(on_card):
                 for _ in range(self.read_every):
                     self.graph.replay()
             ba_kernel.assemble_streams.launches += \
@@ -775,3 +804,49 @@ class LMProgram:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
+
+
+# The process's LM programs, one a key (_program_key): the counterpart of
+# the JAX package's jit cache, which compiles each bucket's LM program
+# once per process. A later stitch with a bucket of the same shapes loads
+# its match tables into the kept program and replays its graph: no
+# warm-up trial and no capture. Each program holds its graph's private
+# memory pool, its kernel workspace and its buffers until
+# release_programs(). Programs of a process group (the match-sharded BA)
+# are never kept: their graph holds the group's NCCL communicator, which
+# can be destroyed while the program lives on.
+_PROGRAMS: dict = {}
+
+
+def _program_key(data: BAData, n_cams: int, fast: bool, max_iter: int,
+                 read_every: int):
+    """What an LMProgram's graph and run loop are built for: the device,
+    the objective and every shape the graph bakes in."""
+    return (data.mi.device, bool(fast), n_cams, data.mi.shape[0],
+            data.pi.shape[0], max_iter, read_every)
+
+
+def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50,
+            read_every: int = READ_EVERY) -> LMProgram:
+    """The process's LMProgram for ``data``'s shapes on its device (one
+    card, no process group), loaded with ``data``; a new one (captured at
+    its first run) when no kept program has those shapes."""
+    key = _program_key(data, n_cams, fast, max_iter, read_every)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        if not _PROGRAMS:
+            # graphs released before the interpreter tears torch down
+            atexit.register(release_programs)
+        prog = _PROGRAMS[key] = LMProgram(data, n_cams, fast, max_iter,
+                                          read_every)
+    else:
+        prog.load_data(data)
+    return prog
+
+
+def release_programs() -> None:
+    """Close every kept LMProgram: their graphs and memory pools are
+    released (the counterpart of jax.clear_caches())."""
+    for prog in _PROGRAMS.values():
+        prog.close()
+    _PROGRAMS.clear()

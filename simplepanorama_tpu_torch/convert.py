@@ -13,6 +13,7 @@ import torch
 
 from simplepanorama_tpu_torch.render.compose import ComposeState
 from simplepanorama_tpu_torch.stitch import StitchResult
+from simplepanorama_tpu_torch.utils.device import checked_device
 
 
 def stitch_result_from_numpy(res) -> StitchResult:
@@ -25,9 +26,12 @@ def stitch_result_from_numpy(res) -> StitchResult:
         sizes=[tuple(map(int, s)) for s in res.sizes])
 
 
-def compose_state_from_numpy(state, device="cpu") -> ComposeState:
-    """ComposeState of the port (tensors on ``device``) from the JAX
-    package's ComposeState."""
+def compose_state_from_numpy(state, device="cuda") -> ComposeState:
+    """ComposeState of the port (tensors on ``device``, the card unless
+    the caller asks for another) from the JAX package's ComposeState, or
+    from any object with its fields."""
+    device = checked_device(device)
+
     def T(a, dtype):
         return None if a is None else torch.as_tensor(
             np.array(a), dtype=dtype, device=device)

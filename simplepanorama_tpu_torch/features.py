@@ -11,7 +11,11 @@ run_pipeline). In a world of several ranks (parallel.mesh.pipeline_mesh)
 each rank extracts its contiguous shard of the images (multihost.
 host_shard) at the common pad and the feature tables are all-gathered,
 as the JAX package's multi-process extraction does; the streaming decode
-is single-process. Not ported: the chunk self-tuning on compile-time OOM.
+is single-process. A chunk that runs out of device memory is released
+and split: the chunk size halves and the extraction goes on from that
+chunk, and the size that ran is remembered per padded shape for the
+process (``_SIFT_CHUNK_CACHE``), as the JAX package does on its
+compile-time out-of-memory.
 """
 
 from __future__ import annotations
@@ -28,16 +32,53 @@ from simplepanorama_tpu_torch.io import PendingLoad
 from simplepanorama_tpu_torch.ops.sift import extract_sift_batch
 from simplepanorama_tpu_torch.utils.device import checked_device
 
+# (Hp, Wp, K, nOctaveLayers) -> the chunk size a run fell back to after
+# running out of device memory at that padded shape
+_SIFT_CHUNK_CACHE: dict = {}
 
 
-def _sift_chunk_size(nb: int, Hp: int, Wp: int, cfg: Config) -> int:
+def _shape_key(Hp: int, Wp: int, cfg: Config):
+    return (Hp, Wp, cfg.sift_max_features(), cfg.nOctaveLayers)
+
+
+def _sift_chunk_size(nb: int, Hp: int, Wp: int, cfg: Config,
+                     step: int = 1) -> int:
     """Images per SIFT launch for ``nb`` images padded to (Hp, Wp): the
     JAX package's memory model, Hp * Wp * (nOctaveLayers + 3) * 550 bytes
     per image (the x2-upscaled pyramid and its refinement maps), against
-    SPT_SIFT_MEM_BUDGET bytes (default 9 GB), at most 8 and at least 1."""
+    SPT_SIFT_MEM_BUDGET bytes (default 9 GB), at most 8 and at least 1,
+    rounded down to a multiple of ``step`` (the ranks of a world, at
+    least ``step``); no more than a size that ran out of memory left
+    behind at this shape."""
     per_img = Hp * Wp * (cfg.nOctaveLayers + 3) * 550
     budget = int(os.environ.get("SPT_SIFT_MEM_BUDGET", 9_000_000_000))
-    return max(1, min(nb, 8, budget // max(1, per_img)))
+    G = max(1, min(nb, 8, budget // max(1, per_img)))
+    G = max(step, G // step * step)
+    return min(G, _SIFT_CHUNK_CACHE.get(_shape_key(Hp, Wp, cfg), G))
+
+
+def _halved(G: int, step: int, key) -> int:
+    """The chunk size after ``G`` images ran out of device memory: half,
+    a multiple of ``step`` and at least ``step``, remembered for the
+    shape ``key``."""
+    G = max(step, G // 2 // step * step)
+    _SIFT_CHUNK_CACHE[key] = min(G, _SIFT_CHUNK_CACHE.get(key, G))
+    return G
+
+
+def _sift_or_none(batch, hw, cfg: Config, least: bool):
+    """_sift on one chunk, or None when the device ran out of memory and
+    the chunk can still be split (not ``least``); then the chunk's memory
+    is released before this returns (the exception, and with it every
+    tensor of the failed chunk, is gone by then). Any other error, and
+    running out of memory at the least chunk, raises."""
+    try:
+        return _sift(batch, hw, cfg)
+    except torch.OutOfMemoryError:
+        if least:
+            raise
+    torch.cuda.empty_cache()
+    return None
 
 
 @dataclasses.dataclass
@@ -133,10 +174,12 @@ def _pad_edge(im: np.ndarray, Hp: int, Wp: int) -> np.ndarray:
 
 
 def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
-                  device, pad_dims=None):
+                  device, pad_dims=None, step: int = 1):
     """Every image padded (to the largest of ``pad_dims``, by default of
     the images) and uploaded at once, SIFT in chunks of
-    ``_sift_chunk_size``. Returns (per-chunk SIFT outputs, hw, batch)."""
+    ``_sift_chunk_size`` (a multiple of ``step``), halved when a chunk
+    runs out of device memory. Returns (per-chunk SIFT outputs, hw,
+    batch)."""
     n = len(images)
     Hp, Wp = _pad8(pad_dims or [im.shape[:2] for im in images])
     batch = np.zeros((n, Hp, Wp, 3), np.uint8)
@@ -145,12 +188,19 @@ def _extract_list(images: Sequence[np.ndarray], cfg: Config, cancelled,
     batch_d = torch.as_tensor(batch, device=device)
     hw_d = torch.as_tensor([im.shape[:2] for im in images], dtype=torch.int64,
                            device=device)
-    G = _sift_chunk_size(n, Hp, Wp, cfg)
+    G = _sift_chunk_size(n, Hp, Wp, cfg, step)
     outs = []
-    for s in range(0, n, G):
+    s = 0
+    while s < n:
         if cancelled is not None and cancelled():
             raise RuntimeError("Process canceled")
-        outs.append(_sift(batch_d[s:s + G], hw_d[s:s + G], cfg))
+        out = _sift_or_none(batch_d[s:s + G], hw_d[s:s + G], cfg,
+                            G <= step)
+        if out is None:
+            G = _halved(G, step, _shape_key(Hp, Wp, cfg))
+            continue
+        outs.append(out)
+        s += G
     return outs, hw_d, batch_d
 
 
@@ -169,7 +219,8 @@ def _extract_sharded(images: Sequence[np.ndarray], cfg: Config, cancelled,
                                              mesh.rank)]
     local += [np.zeros((8, 8, 3), np.uint8)] * (per - len(local))
     outs, _, _ = _extract_list(local, cfg, cancelled, device,
-                               pad_dims=[im.shape[:2] for im in images])
+                               pad_dims=[im.shape[:2] for im in images],
+                               step=mesh.size)
     tables = (torch.cat(parts) for parts in zip(*outs))
     gathered = [all_gather_cat(t, mesh)[:n] for t in tables]
     hw_d = torch.as_tensor([im.shape[:2] for im in images],
@@ -184,8 +235,9 @@ def _extract_stream(pending: PendingLoad, cfg: Config, cancelled, device):
     decode pool works on later images while the device works on earlier
     ones. A chunk holds ``_sift_chunk_size`` images, and with 6 or more
     images at most (n + 2) // 3, so the first SIFT starts after a third of
-    the decodes. A decode
-    that failed raises here. Returns (per-chunk SIFT outputs, hw,
+    the decodes; a chunk that runs out of device memory halves the size
+    and goes again from its first image (its rows stay uploaded). A
+    decode that failed raises here. Returns (per-chunk SIFT outputs, hw,
     batch)."""
     n = len(pending)
     Hp, Wp = _pad8(pending.dims)
@@ -195,18 +247,27 @@ def _extract_stream(pending: PendingLoad, cfg: Config, cancelled, device):
     batch_d = torch.empty((n, Hp, Wp, 3), dtype=torch.uint8, device=device)
     hw_d = torch.as_tensor(pending.dims, dtype=torch.int64, device=device)
     outs = []
-    for s in range(0, n, G):
+    s = uploaded = 0
+    while s < n:
         if cancelled is not None and cancelled():
             raise RuntimeError("Process canceled")
-        ids = range(s, min(s + G, n))
-        blk = np.zeros((len(ids), Hp, Wp, 3), np.uint8)
-        for k, i in enumerate(ids):
-            im = pending.get(i)
-            if tuple(im.shape[:2]) != tuple(pending.dims[i]):
-                raise RuntimeError(
-                    f"{pending.todo[i]} decoded to {im.shape[:2]}, its "
-                    f"header says {pending.dims[i]}")
-            blk[k] = _pad_edge(im, Hp, Wp)
-        batch_d[s:s + len(ids)] = torch.as_tensor(blk, device=device)
-        outs.append(_sift(batch_d[s:s + len(ids)], hw_d[s:s + len(ids)], cfg))
+        end = min(s + G, n)
+        if end > uploaded:
+            ids = range(uploaded, end)
+            blk = np.zeros((len(ids), Hp, Wp, 3), np.uint8)
+            for k, i in enumerate(ids):
+                im = pending.get(i)
+                if tuple(im.shape[:2]) != tuple(pending.dims[i]):
+                    raise RuntimeError(
+                        f"{pending.todo[i]} decoded to {im.shape[:2]}, its "
+                        f"header says {pending.dims[i]}")
+                blk[k] = _pad_edge(im, Hp, Wp)
+            batch_d[uploaded:end] = torch.as_tensor(blk, device=device)
+            uploaded = end
+        out = _sift_or_none(batch_d[s:end], hw_d[s:end], cfg, G <= 1)
+        if out is None:
+            G = _halved(G, 1, _shape_key(Hp, Wp, cfg))
+            continue
+        outs.append(out)
+        s = end
     return outs, hw_d, batch_d

@@ -15,10 +15,14 @@ at a cropped capacity bucket (matches rounded to 2048, cameras to 8) —
 the JAX package's bucket plan. On the card each bucket's LM trial is one
 CUDA graph (ba.LMProgram), replayed with a host read of the termination
 flag every few trials: the counterpart of the JAX package's one compiled
-program per chunk. In a world of several ranks the matches of every
-chunk are split across the ranks (parallel.dist_ba), and on the card the
-bucket's graph holds the trial's all_reduces too. The additions
-themselves (the rotation init's SVD) run eagerly, once each.
+program per chunk. As the JAX package's jit cache keeps that program for
+the process, ba.program keeps the graph: a later stitch whose bucket has
+the same shapes loads its match tables into it and replays, capturing
+nothing (ba.release_programs() drops them all). In a world of several
+ranks the matches of every chunk are split across the ranks
+(parallel.dist_ba), and on the card the bucket's graph holds the trial's
+all_reduces too; such graphs live for one call. The additions themselves
+(the rotation init's SVD) run eagerly, once each.
 """
 
 from __future__ import annotations
@@ -190,8 +194,10 @@ class LMCounts(NamedTuple):
     executed: int             # trials executed: the runs' trials, the
     #                           no-op ones after a run ended, the warm-up
     reads: int                # host reads of the termination flag
-    graphs: int               # trials captured as CUDA graphs
-    capture_s: float          # host seconds spent capturing
+    graphs: int               # trials captured as CUDA graphs in this
+    #                           chunk (0 when its program was kept)
+    capture_s: float          # host seconds spent capturing them
+    error: torch.Tensor       # () the last run's error
 
 
 def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
@@ -211,6 +217,7 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
     executed = reads = graphs = 0
     capture_s = 0.0
+    error = torch.zeros((), dtype=torch.float32, device=dev)
     for l in range(lo, hi):
         cams_c = _add_camera(cams_c, l, order_conns[l], H_pair[l])
         active_c[l] = True
@@ -225,13 +232,14 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
                                         fast=fast, vaug_idx=int(vaug[l]),
                                         ws=ws, group=group)
         cams_c = res.cams
+        error = res.error
         trials = trials + res.n_iter
         accepted = accepted + res.n_accepted
         executed += n
         reads += r
     return cams_c, LMCounts(runs=hi - lo, trials=trials, accepted=accepted,
                             executed=executed, reads=reads, graphs=graphs,
-                            capture_s=capture_s)
+                            capture_s=capture_s, error=error)
 
 
 def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
@@ -244,7 +252,9 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     (h, w) of the global image list, ``focal`` the scene estimate.
     ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
     each chunk of the schedule as its bucket's CUDA graph, replayed, on
-    the card (ba.LMProgram; the graphs live for this call);
+    the card: ba.program's kept LMProgram of the bucket's shapes, loaded
+    with this problem's match tables, captured only when the process has
+    none yet (a chunk's LMCounts count the captures it made);
     ``fused=False``, and every run on the CPU, runs the same trial
     eagerly. Progress and cancellation are per chunk. ``device`` is the
     card unless the caller asks for another.
@@ -255,8 +265,9 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     rounds to 512 per rank, so every rank's share suits kernel 3, and b is
     gathered back after each chunk. With ``fused`` on the card each
     bucket's sharded trial is one CUDA graph holding its all_reduces
-    (ba.LMProgram with the mesh's group); ``fused=False`` and the CPU run
-    it eagerly. Every rank ends with the same result."""
+    (ba.LMProgram with the mesh's group, closed when the call returns);
+    ``fused=False`` and the CPU run it eagerly. Every rank ends with the
+    same result."""
     from simplepanorama_tpu_torch.parallel.mesh import (
         pipeline_mesh, shard_matches, unshard_matches)
     device = checked_device(device)
@@ -312,7 +323,9 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     active = torch.zeros(n_pad, dtype=torch.bool, device=device)
     active[0] = True
     on_card = torch.device(device).type == "cuda"
-    programs = {}   # (n_cap, m_cap) -> ba.LMProgram, for this call only
+    # (n_cap, m_cap) -> the sharded ba.LMProgram, for this call only: its
+    # graph holds the group's communicator
+    programs = {}
     try:
         m_round = int(np.lcm(2048, 512 * world))
         for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap,
@@ -328,12 +341,13 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             if mesh is not None:
                 data_c = shard_matches(data_c, mesh)
                 cams_c = cams_c._replace(b=cams_c.b[mesh.rank::world])
-            if on_card and fused:
+            if on_card and fused and mesh is None:
+                program = ba.program(data_c, n_cap, bool(cfg.fast))
+            elif on_card and fused:
                 program = programs.get((n_cap, m_cap))
                 if program is None:
                     program = programs[n_cap, m_cap] = ba.LMProgram(
-                        data_c, n_cap, bool(cfg.fast),
-                        group=None if mesh is None else mesh.group)
+                        data_c, n_cap, bool(cfg.fast), group=mesh.group)
             elif on_card:
                 ws = ba_kernel.workspace(m_cap // world, n_cap, device)
             cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,

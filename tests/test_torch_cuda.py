@@ -489,9 +489,12 @@ def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
     capture and every replay: a sync would have raised here), and
     launches kernel 3 once per trial executed; against fused=False (the
     same trial, eager) the same trials and accepted steps, and cameras
-    within 1e-5 relative."""
-    from simplepanorama_tpu_torch import stitch
+    within 1e-5 relative. The process's kept programs are released
+    first (the recording stitch left its own), so every bucket is
+    captured in this call."""
+    from simplepanorama_tpu_torch import ba, stitch
     comp, adjres, sizes, focal = slice1_ba
+    ba.release_programs()
     before = ba_kernel.assemble_streams.launches
     res_f, c_f = _run_ba(slice1_ba, True, fast)
     launches = ba_kernel.assemble_streams.launches - before
@@ -582,6 +585,117 @@ def test_replays_do_not_grow_memory(cuda, slice1_ba):
         assert torch.isfinite(prog.st.err)
     finally:
         prog.close()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_kept_program_replays_another_problem_of_its_bucket(cuda, fast):
+    """ba.program on two BA problems of one bucket (the same shapes, other
+    matches and cameras), A then B then A: one capture, and each run
+    equal bit for bit to a fresh LMProgram's run of that problem
+    (trials, accepted steps, error, lambda, cameras); kernel 3 launched
+    once per trial executed on the kept program."""
+    from simplepanorama_tpu_torch import ba
+    ba.release_programs()
+    problems = {seed: _ba_problem_card(seed=seed) for seed in (2, 3)}
+    (ca, da), (cb, db) = problems[2], problems[3]
+    assert ba._program_key(da, 4, fast, 50, 8) == \
+        ba._program_key(db, 4, fast, 50, 8)
+    assert not torch.equal(da.q, db.q)
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    kept, graph = {}, None
+    try:
+        for seed in (2, 3, 2):
+            cams, data = problems[seed]
+            prog = ba.program(data, 4, fast)
+            assert graph is None or prog.graph is graph
+            before = ba_kernel.assemble_streams.launches
+            got, executed, _ = prog.run(cams, active, 0.05)
+            torch.cuda.synchronize()
+            assert ba_kernel.assemble_streams.launches - before == executed
+            graph = prog.graph
+            fresh = ba.LMProgram(data, 4, fast)
+            try:
+                want = fresh.run(cams, active, 0.05)[0]
+            finally:
+                fresh.close()
+            assert _same_run(got, want), seed
+            if seed in kept:
+                assert _same_run(got, kept[seed])
+            kept[seed] = got
+        assert not _same_run(kept[2], kept[3])
+        assert len(ba._PROGRAMS) == 1
+    finally:
+        ba.release_programs()
+
+
+def test_release_programs_frees_the_pools(cuda, slice1_ba):
+    """A stitch's BA leaves its buckets' programs kept, their graphs'
+    private memory pools held; ba.release_programs() closes them, and
+    after torch.cuda.empty_cache() the private pools hold what they held
+    before the stitch, and the memory reserved drops by what the stitch
+    added to them. (After a process's first capture one 32 MiB segment
+    stays in a private pool through every release: on the H100 it was
+    there before this stitch and after the release alike.)"""
+    from chip_smoke import _private_pool_bytes
+    from simplepanorama_tpu_torch import ba
+    ba.release_programs()
+    torch.cuda.empty_cache()
+    before = _private_pool_bytes(torch)
+    _run_ba(slice1_ba, True)
+    held = _private_pool_bytes(torch)
+    reserved = torch.cuda.memory_reserved()
+    assert held > before and len(ba._PROGRAMS) >= 1
+    ba.release_programs()
+    torch.cuda.empty_cache()
+    assert _private_pool_bytes(torch) == before and not ba._PROGRAMS
+    assert torch.cuda.memory_reserved() <= reserved - (held - before)
+
+
+def test_sift_chunk_halves_under_a_memory_cap(cuda, tmp_path, monkeypatch):
+    """features.extract_features on 4 views at init_size 1400 with a
+    budget for 4 images a chunk (SPT_SIFT_MEM_BUDGET 40 GB), under
+    torch.cuda.set_per_process_memory_fraction for 16 GB: the chunk of 4
+    runs out of memory, halves until it fits and the features equal,
+    bit for bit, those of the same budget without the cap."""
+    import cv2
+    from simplepanorama_tpu_torch import ba, features
+    paths, _, _ = fkh360_views(4, 1400, out_dir=str(tmp_path))
+    imgs = [cv2.imread(p) for p in paths]
+    cfg = Config(init_size=1400)
+    monkeypatch.setenv("SPT_SIFT_MEM_BUDGET", "40000000000")
+    monkeypatch.setattr(features, "_SIFT_CHUNK_CACHE", {})
+    assert features._sift_chunk_size(4, 1400, 1400, cfg) == 4
+    want = features.extract_features(imgs, cfg, device="cuda")
+    ba.release_programs()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(16e9 / total)
+    try:
+        got = features.extract_features(imgs, cfg, device="cuda")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    ran = features._SIFT_CHUNK_CACHE[features._shape_key(1400, 1400, cfg)]
+    assert ran < 4
+    for a, b in zip(got, want):
+        for name in ("xy", "size", "response", "desc", "valid"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name), name)
+
+
+def test_compose_state_from_numpy_defaults_to_the_card(cuda):
+    """convert.compose_state_from_numpy puts the state on the card unless
+    the caller asks for another device."""
+    from types import SimpleNamespace
+    from simplepanorama_tpu_torch.convert import compose_state_from_numpy
+    state = SimpleNamespace(
+        imgs=np.zeros((2, 8, 128, 3), np.float32),
+        masks=np.ones((2, 8, 128), bool), offs=np.zeros((2, 2), np.int32),
+        rois=[(0, 0, 128, 8)] * 2, canvas_hw=(8, 256), min_xy=(0, 0),
+        seam_masks=None, gains=None, intensity=None)
+    st = compose_state_from_numpy(state)
+    assert st.imgs.device.type == st.masks.device.type == "cuda"
+    assert compose_state_from_numpy(state, device="cpu").imgs.device.type \
+        == "cpu"
 
 
 # ---------------------------------------------------------------- world 1

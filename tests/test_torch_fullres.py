@@ -73,7 +73,7 @@ def preview_params():
             pt = tstitcher.StitchParams(
                 res=stitch_result_from_numpy(res), rot=np.array(pj.rot),
                 proj_kind=pj.proj_kind, scale=pj.scale,
-                state=compose_state_from_numpy(pj.state),
+                state=compose_state_from_numpy(pj.state, device="cpu"),
                 gains=None if pj.gains is None else np.array(pj.gains))
             out[cut, gain] = (pj, pt)
     return full, out

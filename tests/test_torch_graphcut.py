@@ -38,7 +38,8 @@ def test_graph_cut_state_matches_jax():
     jstate = _blocks()
     seq = [0, 1, 2]
     seams_j = np.asarray(jgc.graph_cut_state(jstate, seq))
-    seams_t = tgc.graph_cut_state(compose_state_from_numpy(jstate), seq)
+    seams_t = tgc.graph_cut_state(
+        compose_state_from_numpy(jstate, device="cpu"), seq)
     assert seams_t.dtype == torch.bool and seams_t.shape == seams_j.shape
     seams_t = seams_t.numpy()
     for i, r in enumerate(jstate.rois):

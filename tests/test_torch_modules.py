@@ -456,7 +456,7 @@ def test_exposure_fields_match_jax(warped):
     Tolerance: fields within 1e-4 (measured 3.6e-7), adjusted pixels
     within 1e-2 on 0..255 (measured 6.1e-5)."""
     sj, _ = warped
-    st = compose_state_from_numpy(sj)
+    st = compose_state_from_numpy(sj, device="cpu")
     fj = np.asarray(jcomp.equalize_dev(sj.imgs, sj.masks, sj.offs,
                                        tuple(sj.canvas_hw)))
     ft = tcomp.equalize_dev(st.imgs, st.masks, st.offs, st.canvas_hw)
@@ -469,7 +469,7 @@ def test_exposure_fields_match_jax(warped):
 def test_dist_cut_matches_jax(warped):
     """Distance-transform seams. Tolerance: exact (measured exact)."""
     sj, _ = warped
-    st = compose_state_from_numpy(sj)
+    st = compose_state_from_numpy(sj, device="cpu")
     cj = np.asarray(jcomp.dist_cut_dev(sj.masks, sj.offs,
                                        tuple(sj.canvas_hw)))
     ct = tcomp.dist_cut_dev(st.masks, st.offs, st.canvas_hw).numpy()
@@ -486,7 +486,7 @@ def test_blend_dev_matches_jax(warped, method):
     sj, _ = warped
     seams = jcomp.dist_cut_dev(sj.masks, sj.offs, tuple(sj.canvas_hw))
     sj.seam_masks = seams
-    st = compose_state_from_numpy(sj)
+    st = compose_state_from_numpy(sj, device="cpu")
     oj = np.asarray(jcomp.blend_dev(method, sj, sj.imgs, 2, 7.0))
     ot = tcomp.blend_dev(method, st, st.imgs, 2, 7.0)
     assert ot.dtype == np.uint8 and ot.shape == oj.shape
