@@ -43,6 +43,12 @@ Phases, each printing one line per input:
           (decode and upload under the preview); then the same render
           through the synchronous path and through a second prefetch, in
           turns, equal bit for bit, with their walls;
+  prefetch_oom the same get_panorama() with the prefetch's upload out
+          of device memory (fullres.prefetch_sources made to raise
+          torch.OutOfMemoryError, after the peaks of the two routes show
+          whether a memory cap could force it): the decoded images
+          rendered through the chunked route on the card, equal bit for
+          bit to the synchronous render, decoded once;
   slice3  a 12-view loop of 1400-px views through the CLI, as a user runs
           it: cli.main([dir, "--fast", "--timing", "--save-state", ...])
           (Lowe objective, default compositing), then cli.main(
@@ -73,6 +79,18 @@ Phases, each printing one line per input:
   hostcut render/graphcut.graph_cut, the per-image host loop, on slice 1's
           blocks on the card: kernel 1 once per cut, seams against the
           device chain's;
+  threads two stitches at once in two threads of this process, sharing
+          kept BA programs (ba.program): the BA problems of slices
+          1 and 3 through stitch.bundle_adjust_stitching, three rounds
+          (the first cold), then two Panorama stitches of the 700-px
+          loops of slices 1 and 3 (cold); each equal to its run alone
+          bit for bit, kernel 3 once per trial executed;
+  fresh   what a fresh process pays (fresh_trace.py): the CLI on slice
+          3's views in two processes of their own (walls from launch
+          to exit, imports, stage walls; equal preview files), and two
+          cut=True stitches of slice 1's loop in one fresh process
+          (the second captures nothing; equal cameras and preview
+          bytes; kernel 1 11 launches a stitch);
   two_card with two or more cards, slice 2 in a world of 2 ranks over
           NCCL (one process a card; its BA splits the matches, each
           bucket's trial a CUDA graph with its all-reduces) against the
@@ -119,7 +137,8 @@ Any failure raises: the exit code is then non-zero and no result line
 is printed. Without a CUDA card, or run alone (without the
 simplepanorama_tpu_torch package beside it), it exits with code 1 before
 any phase. It needs no network and starts no process of its own except
-nvidia-smi, nvcc and, with two or more cards, the two ranks of the
+nvidia-smi, nvcc, the fresh phase's three processes (each waited for,
+with a time limit) and, with two or more cards, the two ranks of the
 two_card phase (parallel/launch.run_world, which kills them if they
 outlive its time limit).
 """
@@ -134,6 +153,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1197,9 +1217,8 @@ def _ba_phase(torch, problems, card):
     steps in every run, cameras within 1e-5 relative between the two,
     kernel 3 launched once per trial executed, one graph per bucket in a
     cold run, none in the warm run, whose trials, cameras and error
-    equal the cold run's bit for bit. Host syncs raise inside every
-    trial of both (the LM sets torch.cuda.set_sync_debug_mode("error")
-    around them). Returns {name: {"launches": kernel-3 launches of the
+    equal the cold run's bit for bit. A host sync inside a trial would
+    fail the graph run's capture. Returns {name: {"launches": kernel-3 launches of the
     runs, "buckets": the kernel3 results of the largest bucket}}."""
     from simplepanorama_tpu_torch import ba, stitch
     from simplepanorama_tpu_torch.ops import ba_kernel
@@ -1269,7 +1288,7 @@ def _ba_phase(torch, problems, card):
             _line("ba", problem=name, fused=fused, warm=warm,
                   fast=bool(cfg.fast), wall_s=wall, **lm,
                   ms_per_trial=wall * 1e3 / max(1, lm["lm_trials"]),
-                  assemble_streams_launches=k3, sync_debug="error",
+                  assemble_streams_launches=k3,
                   read_every=ba.READ_EVERY,
                   focal_rel_diff_vs_first=df, rot_diff_vs_first=drot,
                   focals=[float(x) for x in res.K[:, 0, 0]], **extra,
@@ -1604,11 +1623,11 @@ def _ba_cache_phase(torch, card, ba_problems):
         for name in (names[0], names[1], names[0]):
             cams, data, active, lam = padded[name]
             n_cams = cams.focal.shape[0]
-            prog = ba.program(data, n_cams, fast)
-            programs.add(id(prog))
-            ba_kernel.assemble_streams.launches = 0
-            got, executed, _ = prog.run(cams, active, lam)
-            torch.cuda.synchronize()
+            with ba.program(data, n_cams, fast) as prog:
+                programs.add(id(prog))
+                ba_kernel.assemble_streams.launches = 0
+                got, executed, _ = prog.run(cams, active, lam)
+                torch.cuda.synchronize()
             k3 = ba_kernel.assemble_streams.launches
             launches += k3
             fresh = ba.LMProgram(data, n_cams, fast)
@@ -1740,6 +1759,280 @@ def _two_card_phase(torch, card, tmp, paths, single):
             or not ok_shape or ncc_p < 0.99 or ncc_f < 0.99):
         raise RuntimeError("two_card: the 2-rank stitch disagrees with the "
                            "single-card one")
+
+
+def _prefetch_oom_phase(torch, card, pano):
+    """Slice 2's get_panorama() with the prefetch's upload out of device
+    memory. First the peaks of the two routes: the chunked render
+    (stitcher.render_full_from_imageset: its images decoded in the call)
+    and the size of the packed source stack the prefetch uploads. A cap
+    (torch.cuda.set_per_process_memory_fraction) would fail the upload
+    and let the chunked render run only if the stack were larger than
+    the render's own peak above what the card held before it; where it
+    is not, the upload is made to raise torch.OutOfMemoryError
+    (fullres.prefetch_sources replaced), as the line says. Then the
+    prefetch as stitch() starts it, and get_panorama(). Gates: the
+    panorama equals the synchronous render bit for bit, the thread
+    decoded the images once, prefetch_stats["upload_oom"] is true, and
+    the render ran on the card (its peak above the memory held before
+    it). Prints one line."""
+    from simplepanorama_tpu_torch import io as tio
+    from simplepanorama_tpu_torch import stitcher
+    from simplepanorama_tpu_torch.render import fullres
+    params, cfg = pano.stitch_params, pano.config
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = stitcher.render_full_from_imageset(params, cfg, pano.images)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    sync_peak = torch.cuda.max_memory_allocated() - base
+    decodes = []
+    load = tio.ImageSet.load_connected_images
+    prefetch = fullres.prefetch_sources
+    stack_bytes = []
+
+    def counted(self, *a, **kw):
+        decodes.append(threading.current_thread().name)
+        return load(self, *a, **kw)
+
+    def out_of_memory(params, full_images):
+        sel_, (Hs, Ws) = fullres._selected(params, full_images)
+        stack_bytes.append(len(sel_) * Hs * Ws * 3)
+        raise torch.OutOfMemoryError(
+            "CUDA out of memory (raised by chip_smoke's prefetch_oom phase)")
+    tio.ImageSet.load_connected_images = counted
+    fullres.prefetch_sources = out_of_memory
+    try:
+        pano._full_pano = None
+        pano._start_full_prefetch()          # as stitch() starts it
+        pano.get_preview()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = pano.get_panorama()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        tio.ImageSet.load_connected_images = load
+        fullres.prefetch_sources = prefetch
+    cap_fits = bool(stack_bytes and stack_bytes[0] > sync_peak)
+    stats = dict(pano.prefetch_stats)
+    same = bool(np.array_equal(got, want))
+    _line("prefetch_oom", forced="fullres.prefetch_sources raised "
+          "torch.OutOfMemoryError" + ("" if cap_fits else
+                                      ": no cap fails the stack's upload "
+                                      "and lets the chunked render run, "
+                                      "the stack being smaller than the "
+                                      "render's peak"),
+          stack_bytes=stack_bytes[0] if stack_bytes else None,
+          chunked_render_peak_bytes=sync_peak, a_cap_would_fit=cap_fits,
+          synchronous_wall_s=sync_wall, full_wall_s=wall,
+          fallback_render_peak_bytes=peak, prefetch=stats,
+          decodes=len(decodes), equal_to_synchronous_bits=same,
+          full_shape=list(got.shape), device=card)
+    if not (same and stats.get("upload_oom") is True and len(decodes) == 1
+            and pano.device.type == "cuda" and peak > 0):
+        raise RuntimeError(f"prefetch_oom: equal bits {same}, stats {stats}, "
+                           f"{len(decodes)} decodes, render peak {peak} "
+                           f"bytes on {pano.device}")
+    del want, got
+
+
+def _thread_counts(stitch):
+    """stitch._lm_chunk wrapped to count, per thread, what the chunks ran:
+    trials executed, LM trials, graphs captured and their seconds, the
+    last run's error and the program keys (n_cams, M, P). Returns
+    (wrapper, take): take() pops the calling thread's counts."""
+    lock = threading.Lock()
+    counts = {}
+    chunk = stitch._lm_chunk
+
+    def counted(cams, active, data, *a, **kw):
+        out, c = chunk(cams, active, data, *a, **kw)
+        key = (int(cams.focal.shape[0]), int(data.mi.shape[0]),
+               int(data.pi.shape[0]))
+        trials, error = int(c.trials), float(c.error)
+        with lock:
+            d = counts.setdefault(threading.get_ident(), {
+                "trials_executed": 0, "lm_trials": 0, "graphs": 0,
+                "capture_s": 0.0, "keys": []})
+            d["trials_executed"] += c.executed
+            d["lm_trials"] += trials
+            d["graphs"] += c.graphs
+            d["capture_s"] += c.capture_s
+            d["lm_error"] = error
+            if key not in d["keys"]:
+                d["keys"].append(key)
+        return out, c
+
+    def take():
+        with lock:
+            return counts.pop(threading.get_ident(), None)
+    return counted, take
+
+
+def _threads_phase(torch, card, problems, loops):
+    """Two stitches at once in two threads of this process, sharing kept
+    BA programs (ba.program). First the BA problems of slices 1 and
+    3 (``problems``) through stitch.bundle_adjust_stitching, both under
+    slice 1's config (relaxed) so that their schedules share capacity
+    buckets: each alone, then both at once, three times (the first after
+    ba.release_programs(), so its captures run beside the other thread's
+    work; the others replay). Then two Panorama(...).stitch(Config())
+    .get_preview() of two loops of 700-px working size (``loops``: the
+    views of slices 1 and 3), each alone, then both at once after
+    ba.release_programs(). Gates: every concurrent result equals its
+    single-thread run bit for bit (cameras and the last LM error; the
+    preview's bytes for the Panoramas), no capture fails, the two
+    threads' program keys intersect, a cold round captures one graph a
+    key (the union of the two threads' keys) and a warm round none, and
+    kernel 3 launches once per trial executed in both threads. Prints
+    one line per round; returns kernel 3's launches in the concurrent
+    rounds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from simplepanorama_tpu_torch import Config, Panorama, ba, stitch
+    from simplepanorama_tpu_torch.ops import ba_kernel
+    counted, take = _thread_counts(stitch)
+    cfg = problems["slice1_relaxed"][4]
+    names = ("slice1_relaxed", "slice3_lowe")
+
+    def ba_run(name, meet=None):
+        comp, adjres, sizes, focal, _ = problems[name]
+        take()
+        if meet is not None:
+            meet.wait()
+        res = stitch.bundle_adjust_stitching(comp, adjres, sizes, focal, cfg,
+                                             device="cuda")
+        c = take()
+        return (res.K, res.rot, c["lm_error"]), c
+
+    def pano_run(paths, meet=None):
+        take()
+        if meet is not None:
+            meet.wait()
+        p = Panorama(paths, device="cuda").stitch(Config())
+        preview = p.get_preview()
+        p._stop_full_prefetch()
+        c = take()
+        return (p.result.K, p.result.rot, c["lm_error"],
+                preview.tobytes()), c
+
+    def same(a, b):
+        return all(np.array_equal(x, y) if isinstance(x, np.ndarray)
+                   else x == y for x, y in zip(a, b))
+
+    launches = 0
+    chunk = stitch._lm_chunk
+    stitch._lm_chunk = counted
+    try:
+        for part, run, inputs, rounds in (
+                ("bundle_adjust", ba_run, names, 3),
+                ("panorama", pano_run, tuple(
+                    sorted(os.path.join(d, f) for f in os.listdir(d))
+                    for d in loops), 1)):
+            alone, alone_wall = [], []
+            for x in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                alone.append(run(x))
+                torch.cuda.synchronize()
+                alone_wall.append(time.perf_counter() - t0)
+            keys = [set(c["keys"]) for _, c in alone]
+            shared = sorted(keys[0] & keys[1])
+            for r in range(rounds):
+                cold = r == 0
+                if cold:
+                    ba.release_programs()
+                meet = threading.Barrier(2, timeout=60)
+                ba_kernel.assemble_streams.launches = 0
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(2) as ex:
+                    futs = [ex.submit(run, x, meet) for x in inputs]
+                    both = [f.result(timeout=600) for f in futs]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                k3 = ba_kernel.assemble_streams.launches
+                launches += k3
+                executed = sum(c["trials_executed"] for _, c in both)
+                graphs = sum(c["graphs"] for _, c in both)
+                equal = [same(b[0], a[0]) for a, b in zip(alone, both)]
+                want_graphs = len(keys[0] | keys[1]) if cold else 0
+                _line("threads", part=part, round=r + 1, cold=cold,
+                      equal_to_alone_bits=equal, shared_keys=shared,
+                      keys=[sorted(k) for k in keys], graphs=graphs,
+                      capture_s=[c["capture_s"] for _, c in both],
+                      trials_executed=[c["trials_executed"]
+                                       for _, c in both],
+                      lm_trials=[c["lm_trials"] for _, c in both],
+                      assemble_streams_launches=k3, wall_s=wall,
+                      alone_wall_s=alone_wall,
+                      alone_lm_error=[a[0][2] for a in alone],
+                      device=card)
+                if not all(equal) or not shared or graphs != want_graphs \
+                        or k3 != executed or min(
+                            c["lm_trials"] for _, c in both) < 1:
+                    raise RuntimeError(
+                        f"threads {part} round {r + 1}: equal {equal}, "
+                        f"shared keys {shared}, {graphs} graphs (wanted "
+                        f"{want_graphs}), kernel 3 {k3} for {executed} "
+                        "trials executed")
+    finally:
+        stitch._lm_chunk = chunk
+    return launches
+
+
+def _fresh_phase(torch, card, views3, loop700, tmp):
+    """What a fresh process pays, in processes of their own (fresh_trace.py;
+    the kernels built earlier in this run, nothing else on disk cleared):
+    the CLI as a user runs it on slice 3's 1400-px views (python -X
+    importtime -m simplepanorama_tpu_torch.cli DIR --fast --timing
+    --save-state S -o P), twice in turn, each process's wall from launch
+    to exit, its imports and its --timing stage walls; then two cut=True
+    stitches of slice 1's 700-px views in turn in one fresh process, with
+    SPT_SYNC_STAGES=1. Gates: the two CLI processes' preview files equal
+    byte for byte; the second stitch captures no graph; both stitches
+    give equal cameras and preview bytes; kernel 1 launches 11 times a
+    stitch and kernel 3 once per trial executed. Prints one line per
+    process and one per stitch; returns the stitches' launches of
+    kernels 1 and 3. A line first says whether Python may write bytecode
+    and whether torch's is cached."""
+    import importlib.util
+    import fresh_trace
+    here = os.path.dirname(os.path.abspath(__file__))
+    # whether Python may cache torch's bytecode here: without a cache, a
+    # fresh process compiles torch's modules from source
+    torch_pyc = importlib.util.cache_from_source(
+        importlib.util.find_spec("torch").origin)
+    _line("fresh", command="python",
+          dont_write_bytecode=sys.dont_write_bytecode,
+          torch_bytecode_cached=os.path.exists(torch_pyc), device=card)
+    cli = []
+    for run in (1, 2):
+        cli.append(fresh_trace.run_cli(here, views3, tmp, f"fresh{run}"))
+        _line("fresh", command="cli --fast --timing --save-state", run=run,
+              **cli[-1], device=card)
+    if cli[0]["preview_file"] != cli[1]["preview_file"]:
+        raise RuntimeError("fresh: two CLI processes wrote different "
+                           "previews")
+    wall, imports, (first, second) = fresh_trace.run_stitches(here, loop700)
+    for row in (first, second):
+        _line("fresh", command="fresh_trace.py (two cut=True stitches)",
+              **row, **imports, process_wall_s=wall, device=card)
+    ok = (second["lm"]["graphs"] == 0
+          and first["cameras"] == second["cameras"]
+          and first["preview"] == second["preview"]
+          and all(r["launches"]["grid_mincut"] == 11
+                  and r["launches"]["assemble_streams"]
+                  == r["lm"]["executed"] for r in (first, second)))
+    if not ok:
+        raise RuntimeError(f"fresh: the first and second stitch of a fresh "
+                           f"process: {first} / {second}")
+    return tuple(sum(r["launches"][k] for r in (first, second))
+                 for k in ("grid_mincut", "assemble_streams"))
 
 
 def main():
@@ -2018,6 +2311,9 @@ def main():
             raise RuntimeError(f"slice2: the prefetched full-res render "
                                f"({prefetch2}) differs from the "
                                f"synchronous one: {same_bits}")
+        # ---- the same get_panorama() with the prefetch's upload out of
+        # device memory: the chunked route on the same card ----
+        _prefetch_oom_phase(torch, card, pano)
         pano2 = pano     # for the dist phase
         slice2_single = (tuple(pano.connected), focals, preview, full)
         paths2 = list(paths)
@@ -2183,6 +2479,12 @@ def main():
               launches=launches_dist, device=card)
         launches_cache = _ba_cache_phase(torch, card, dist_problems)
         launches_hostcut = _hostcut_phase(torch, card, pano1)
+        # ---- two stitches at once in two threads, and what a fresh
+        # process pays ----
+        launches_threads = _threads_phase(
+            torch, card, problems, (os.path.join(tmp, "loop"), views3))
+        launches_fresh = _fresh_phase(torch, card, views3,
+                                      os.path.join(tmp, "loop"), tmp)
         del pano1, pano2, dist_problems, seam1
         _two_card_phase(torch, card, tmp, paths2, slice2_single)
         del slice2_single
@@ -2260,7 +2562,9 @@ def main():
                               "slice5": launches5[0],
                               "options": launches_opt[0],
                               "hostcut": launches_hostcut[0],
-                              "dist": launches_dist["mincut"][0]},
+                              "dist": launches_dist["mincut"][0],
+                              # the two stitches of a fresh process
+                              "fresh": launches_fresh[0]},
          # largest |cut value (kernel) - cut value (plain)| over its inputs
          "max_abs_err": max(errs1),
          "ms": timing1[0],
@@ -2302,6 +2606,8 @@ def main():
                               "dist": launches_dist["assemble_streams"],
                               "ba_cache": launches_cache,
                               "hostcut": launches_hostcut[2],
+                              "threads": launches_threads,
+                              "fresh": launches_fresh[1],
                               "ba_phase": {k: v["launches"]
                                            for k, v in ba_runs.items()}},
          # its checking calls on slice 3's own BA problem, kernel3 phase

@@ -20,7 +20,8 @@ every READ_EVERY trials (``lm_run_eager``); on the card ``LMProgram``
 replays the trial as a CUDA graph between those reads, its all-reduces
 included when the matches are split across ranks, and ``program`` keeps
 each single-card bucket's program for the process, as the JAX package's
-jit cache keeps its compiled LM (``release_programs`` drops them). The
+jit cache keeps its compiled LM (``release_programs`` drops them), lent
+to one thread at a time. The
 per-pair H chain and its Jacobian come from torch.func.jacfwd + vmap
 over the realized camera pairs; the per-match table expansion is an
 index gather with an explicit clamp. Both objectives are ported: the
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -41,6 +43,9 @@ from torch.func import jacfwd, vmap
 
 from simplepanorama_tpu_torch.geometry.rotation import rodrigues
 from simplepanorama_tpu_torch.ops import ba_kernel
+from simplepanorama_tpu_torch.utils.device import (CAPTURE_LOCK,
+                                                   cusolver_linalg)
+from simplepanorama_tpu_torch.utils.nvcc import count_launches
 
 _AUG_FOCAL = 1e-3
 _AUG_ANG = float(np.pi / 16.0)
@@ -120,7 +125,17 @@ def _pair_H(cam_i, cam_j):
 
 
 _pair_H_batch = vmap(_pair_H)
-_pair_H_jac_batch = vmap(jacfwd(_pair_H, argnums=(0, 1)))
+_pair_H_jac = vmap(jacfwd(_pair_H, argnums=(0, 1)))
+# PyTorch's forward-mode AD levels, which jacfwd enters and leaves, are
+# one stack for the process: a level left while another thread's is open
+# raises. Stitches in several threads take their Jacobians in turn.
+_FORWARD_AD_LOCK = threading.Lock()
+
+
+def _pair_H_jac_batch(ci, cj):
+    with _FORWARD_AD_LOCK:
+        return _pair_H_jac(ci, cj)
+
 
 
 def _cam6(cams: CamState):
@@ -467,18 +482,6 @@ class LMProblem(NamedTuple):
 # read every trial would stall the card 46 times
 READ_EVERY = 8
 
-# capture_error_mode of LMProgram's capture, by whether the trial holds
-# collectives. "global" (PyTorch's default) makes a CUDA call that is
-# unsafe under capture an error in any thread, and such a call
-# invalidates the capture; "thread_local" checks only the capturing
-# thread. ProcessGroupNCCL's watchdog thread queries the events of
-# earlier collectives on its own schedule, so a sharded trial is
-# captured thread-local. (On an H100 at world 1 the sharded trial
-# captured in both modes; the watchdog's timing, not the trial, decides
-# whether "global" fails.)
-_CAPTURE_MODE = {False: "global", True: "thread_local"}
-
-
 def _active_matches(data: BAData, cam_active):
     # ids beyond a cropped camera table clamp, like a JAX gather
     N = cam_active.shape[0]
@@ -595,22 +598,15 @@ def lm_step(st: LMState, pb: LMProblem, fast: bool):
 
 @contextlib.contextmanager
 def _device_trials(on_card: bool):
-    """Around trials on the card: any host sync raises
-    (torch.cuda.set_sync_debug_mode("error")), and the solve takes
-    cuSOLVER, whose getrf / getrs run on the device and can be captured
-    (a small getrf may otherwise go to MAGMA, which works on the host)."""
-    if not on_card:
-        yield
-        return
-    mode = torch.cuda.get_sync_debug_mode()
-    lib = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-        torch.backends.cuda.preferred_linalg_library(lib)
+    """Around trials run on the card (eagerly, or captured): the solve on
+    cuSOLVER (utils/device.cusolver_linalg, set for the process). A
+    trial makes no host sync; a capture proves it, since a sync in the
+    capturing thread fails the capture. (No sync-debug mode here: that
+    setting is the process's, and would fail another thread's own
+    syncs.)"""
+    if on_card:
+        cusolver_linalg()
+    yield
 
 
 def _result(st: LMState) -> LMResult:
@@ -672,9 +668,9 @@ class LMProgram:
     What the graph bakes in is the shapes alone: M, P, ``n_cams``, the
     objective, ``max_iter`` and the kernel's workspace, sized by M and
     ``n_cams``. The first run's first trial runs eagerly on a side stream
-    (the warm-up that capture needs), then the trial is captured with
-    host syncs raising. Call ``close`` to release the graph and its
-    memory pool.
+    (the warm-up that capture needs), then the trial is captured there
+    (``_capture``; a host sync inside it fails the capture). Call
+    ``close`` to release the graph and its memory pool.
 
     With a process ``group`` (the match-sharded BA, parallel.dist_ba),
     ``data`` and the cameras' b are this rank's share of the matches
@@ -752,27 +748,33 @@ class LMProgram:
             t.zero_()
 
     def _capture(self):
+        """The warm-up trial, then the trial captured on this program's own
+        stream. One capture at a time in the process (CAPTURE_LOCK), in
+        "thread_local" mode: a CUDA call of another thread, such as a
+        stitch in another thread or the NCCL watchdog of a sharded
+        trial's process group, neither fails the capture nor joins it."""
         if self.pb.data.mi.device.type != "cuda":
             raise ValueError("LMProgram captures on a CUDA device, not "
                              f"{self.pb.data.mi.device}")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), _device_trials(True):
-            self._store(lm_trial(self.st, self.pb, self.fast))
-        torch.cuda.current_stream().wait_stream(side)
-        before = ba_kernel.assemble_streams.launches
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode=_CAPTURE_MODE[
-                self.pb.group is not None]):
-            with _device_trials(True):
+        with CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), _device_trials(True):
                 self._store(lm_trial(self.st, self.pb, self.fast))
-        # capture records the launches, it does not run them: the replays
-        # count them
-        self.launches_per_trial = ba_kernel.assemble_streams.launches - before
-        ba_kernel.assemble_streams.launches = before
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+            torch.cuda.current_stream().wait_stream(side)
+            before = ba_kernel.assemble_streams.recorded
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                with _device_trials(True):
+                    self._store(lm_trial(self.st, self.pb, self.fast))
+            # the capture records the launches without running them: the
+            # replays count them
+            self.launches_per_trial = \
+                ba_kernel.assemble_streams.recorded - before
+            self.graph = graph
+            self.capture_s = time.perf_counter() - t0
 
     def run(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
         """One LM run from ``cams``. ``vaug_idx``: the camera whose focal
@@ -784,13 +786,11 @@ class LMProgram:
         if self.graph is None:
             self._capture()
             executed += 1
-        on_card = self.pb.data.mi.device.type == "cuda"
         while True:
-            with _device_trials(on_card):
-                for _ in range(self.read_every):
-                    self.graph.replay()
-            ba_kernel.assemble_streams.launches += \
-                self.read_every * self.launches_per_trial
+            for _ in range(self.read_every):
+                self.graph.replay()
+            count_launches(ba_kernel.assemble_streams,
+                           self.read_every * self.launches_per_trial)
             executed += self.read_every
             reads += 1
             if not bool(self.live):
@@ -816,6 +816,11 @@ class LMProgram:
 # are never kept: their graph holds the group's NCCL communicator, which
 # can be destroyed while the program lives on.
 _PROGRAMS: dict = {}
+# one lock a key, held by the thread whose tables a kept program holds
+# (program); never dropped, so a thread waiting on one across a
+# release_programs() still shares it with the threads that come after
+_PROGRAM_LOCKS: dict = {}
+_CACHE_LOCK = threading.Lock()
 
 
 def _program_key(data: BAData, n_cams: int, fast: bool, max_iter: int,
@@ -826,27 +831,48 @@ def _program_key(data: BAData, n_cams: int, fast: bool, max_iter: int,
             data.pi.shape[0], max_iter, read_every)
 
 
-def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50,
-            read_every: int = READ_EVERY) -> LMProgram:
-    """The process's LMProgram for ``data``'s shapes on its device (one
-    card, no process group), loaded with ``data``; a new one (captured at
-    its first run) when no kept program has those shapes."""
-    key = _program_key(data, n_cams, fast, max_iter, read_every)
-    prog = _PROGRAMS.get(key)
-    if prog is None:
-        if not _PROGRAMS:
-            # graphs released before the interpreter tears torch down
-            atexit.register(release_programs)
-        prog = _PROGRAMS[key] = LMProgram(data, n_cams, fast, max_iter,
-                                          read_every)
-    else:
-        prog.load_data(data)
+def _kept(data: BAData, n_cams: int, fast: bool, max_iter: int,
+          read_every: int, key) -> LMProgram:
+    """The kept program of ``key`` loaded with ``data``, made when the
+    process has none (captured at its first run)."""
+    with _CACHE_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            if not _PROGRAMS:
+                # graphs released before the interpreter tears torch down
+                atexit.register(release_programs)
+            _PROGRAMS[key] = LMProgram(data, n_cams, fast, max_iter,
+                                       read_every)
+            return _PROGRAMS[key]
+    prog.load_data(data)
     return prog
+
+
+@contextlib.contextmanager
+def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50,
+            read_every: int = READ_EVERY):
+    """The process's LMProgram for ``data``'s shapes on its device (one
+    card, no process group), loaded with ``data``, with its key's lock
+    held for the block: from loading ``data``'s tables through the
+    block's last run, no other thread loads or runs that program.
+    Stitches in several threads of one process then give what each gives
+    alone, as with the JAX package's stateless executables; two keys run
+    at once."""
+    key = _program_key(data, n_cams, fast, max_iter, read_every)
+    with _CACHE_LOCK:
+        lock = _PROGRAM_LOCKS.setdefault(key, threading.Lock())
+    with lock:
+        yield _kept(data, n_cams, fast, max_iter, read_every, key)
 
 
 def release_programs() -> None:
     """Close every kept LMProgram: their graphs and memory pools are
-    released (the counterpart of jax.clear_caches())."""
-    for prog in _PROGRAMS.values():
-        prog.close()
-    _PROGRAMS.clear()
+    released (the counterpart of jax.clear_caches()). A program that a
+    thread holds (program) is closed when that thread lets it go."""
+    with _CACHE_LOCK:
+        kept = list(_PROGRAMS.items())
+        _PROGRAMS.clear()
+        locks = dict(_PROGRAM_LOCKS)
+    for key, prog in kept:
+        with locks.get(key) or contextlib.nullcontext():
+            prog.close()

@@ -30,7 +30,7 @@ import torch
 from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.io import PendingLoad
 from simplepanorama_tpu_torch.ops.sift import extract_sift_batch
-from simplepanorama_tpu_torch.utils.device import checked_device
+from simplepanorama_tpu_torch.utils.device import checked_device, empty_cache
 
 # (Hp, Wp, K, nOctaveLayers) -> the chunk size a run fell back to after
 # running out of device memory at that padded shape
@@ -77,7 +77,7 @@ def _sift_or_none(batch, hw, cfg: Config, least: bool):
     except torch.OutOfMemoryError:
         if least:
             raise
-    torch.cuda.empty_cache()
+    empty_cache()
     return None
 
 

@@ -9,8 +9,10 @@ does on its CPU backend.
 The shared object is compiled with ``g++ -O3 -shared -fPIC`` at first use
 into ``build/native/`` at the repository root (gitignored), named by a
 hash of the source and the flags; ``native/`` itself is never written.
-Unlike the JAX package, which falls back to its XLA solver when the build
-fails, a failed build raises with the compiler's message.
+A failed build raises NativeUnavailable with the compiler's message, and
+later calls in the process raise it again without building; the CPU
+seam finder (render/graphcut._solve_cut) then takes the plain solver, as
+the JAX package takes its XLA one.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+# the shared object whose build failed in this process, and the message;
+# a library of other sources or flags is built anew
+_FAILED: Optional[Tuple[pathlib.Path, str]] = None
 
 
 class NativeUnavailable(RuntimeError):
@@ -53,15 +58,21 @@ def _build(so: pathlib.Path) -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
+    global _LIB, _FAILED
     with _LOCK:
         if _LIB is not None:
             return _LIB
         h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
         h.update(SOURCE.read_bytes())
         so = BUILD_DIR / f"libspt_mincut-{h.hexdigest()[:16]}.so"
+        if _FAILED is not None and _FAILED[0] == so:
+            raise NativeUnavailable(_FAILED[1])
         if not so.exists():
-            _build(so)
+            try:
+                _build(so)
+            except NativeUnavailable as e:
+                _FAILED = (so, str(e))
+                raise
         lib = ctypes.CDLL(str(so))
         lib.grid_mincut.restype = ctypes.c_float
         lib.grid_mincut.argtypes = [

@@ -31,6 +31,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from simplepanorama_tpu_torch.utils.nvcc import count_launches
+
 _BLOCK = 512
 _FLOATS = ("ai", "aj", "bp", "r2", "l00", "l10", "l11", "g0", "g1")
 
@@ -176,7 +178,10 @@ def assemble_streams(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
     M a multiple of min(512, M), as the JAX kernel requires. Returns
     (U (6N, 6N), eA (6N,), YW (6N, 6N), yeb (6N,)) float32. CPU tensors
     run assemble_streams_ref; CUDA tensors launch csrc/ba_assemble.cu and
-    count the launch in ``assemble_streams.launches``. On the card,
+    count the launch in ``assemble_streams.launches``; under a CUDA graph
+    capture the launch is recorded, not run, and counted in
+    ``assemble_streams.recorded`` (the graph's replays count it, ba.
+    LMProgram.run). On the card,
     ``ws`` (from ``workspace``) saves the plan and the scratch of each
     call, and int32 ids save their copy: a caller that launches many
     times at one shape passes both."""
@@ -213,9 +218,13 @@ def assemble_streams(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
             int(bool(with_schur)), ws.ctas, ws.per_cta, ws.off_in_smem,
             ws.smem, stream)
     _raise_on(lib, rc, "launch")
-    assemble_streams.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        assemble_streams.recorded += 1
+    else:
+        count_launches(assemble_streams)
     return U, eA, YW, yeb
 
 
 assemble_streams.launches = 0
+assemble_streams.recorded = 0
 

@@ -36,6 +36,8 @@ import ctypes
 import numpy as np
 import torch
 
+from simplepanorama_tpu_torch.utils.nvcc import count_launches
+
 _INF = 1e18
 
 # direction order: 0=right(+x), 1=left(-x), 2=down(+y), 3=up(-y)
@@ -523,7 +525,7 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
                                inner_iters, sweep_iters)
     side, _, stats = _launch("grid_mincut", cap_h, cap_v, excess0, node,
                              max_outer, inner_iters, sweep_iters)
-    grid_mincut.launches += 1
+    count_launches(grid_mincut)
     grid_mincut.last_stats = stats
     return side
 
@@ -553,7 +555,7 @@ def grid_mincut_tiled(cap_h: torch.Tensor, cap_v: torch.Tensor,
                                      inner_iters, sweep_iters)
     side, _, stats = _launch("grid_mincut_tiled", cap_h, cap_v, excess0,
                              node, max_outer, inner_iters, sweep_iters)
-    grid_mincut_tiled.launches += 1
+    count_launches(grid_mincut_tiled)
     grid_mincut_tiled.last_stats = stats
     return side
 

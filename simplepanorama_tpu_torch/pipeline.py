@@ -9,7 +9,9 @@ Progress is reported through a callback and cancellation through a token
 polled at stage boundaries. After a stitch (or a set_config with a new
 result) a background thread decodes the full-res connected images and
 uploads their packed source stack while the preview composites;
-`get_panorama()` joins it and renders from the stack on the device.
+`get_panorama()` joins it and renders from the stack on the device (from
+the decoded images through the chunked route when the upload ran out of
+device memory).
 
 The device is explicit: ``device="cuda"`` runs on the GPU and raises when
 no GPU is present; the CPU is used only when asked for. The entry points
@@ -19,6 +21,7 @@ exposure and blending convolutions keep full float32 precision.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import threading
 import time
@@ -93,6 +96,24 @@ def crop_roi(full: np.ndarray, preview_hw, roi) -> np.ndarray:
     return full[y0:y1, x0:x1]
 
 
+# the prefetch threads still running, each with its cancel event
+_PREFETCHES: set = set()
+
+
+def _join_prefetches() -> None:
+    """At exit, before the interpreter finalizes: cancel the prefetches
+    still running and wait for their threads. A daemon thread that is
+    inside a torch call when the interpreter finalizes aborts the process
+    ("terminate called without an active exception"), as a command that
+    stitches and exits without get_panorama() would leave its prefetch."""
+    for thread, cancel in list(_PREFETCHES):
+        cancel.set()
+        thread.join()
+
+
+atexit.register(_join_prefetches)
+
+
 class Panorama:
     """Full pipeline entry point. See `stitch()`."""
 
@@ -138,12 +159,16 @@ class Panorama:
         first, so two never run at once. The thread makes its CUDA calls
         under this Panorama's device.
 
-        Unlike the JAX package, whose thread falls back silently to the
-        synchronous path on any error, a failed decode or upload is kept
-        and raised by get_panorama; a cancelled prefetch is not an
-        error."""
+        An upload that runs out of device memory drops its partial stack
+        and keeps the decoded images (``upload_oom``): get_panorama renders
+        them through the chunked route on the same card, as the JAX
+        package's thread falls back to the synchronous path. Unlike the
+        JAX package, which falls back on any error and decodes again, a
+        failed decode is kept and raised by get_panorama; a cancelled
+        prefetch is not an error."""
         import torch
         from simplepanorama_tpu_torch.render.fullres import prefetch_sources
+        from simplepanorama_tpu_torch.utils.device import empty_cache
         params, images, dev = self.stitch_params, self.images, self.device
         if params is None:
             return
@@ -170,19 +195,31 @@ class Panorama:
                     if cancel.is_set():
                         return
                     t0 = time.perf_counter()
-                    out["stack"] = prefetch_sources(params, comp_full)
+                    try:
+                        out["stack"] = prefetch_sources(params, comp_full)
+                    except torch.OutOfMemoryError:
+                        out["upload_oom"] = True
                     out["upload_s"] = time.perf_counter() - t0
+                    if out.get("upload_oom") and dev.type == "cuda":
+                        # the partial stack's blocks, for the render
+                        empty_cache()
             except Exception as e:      # raised again by get_panorama
                 out["error"] = e
+            finally:
+                _PREFETCHES.discard(running)
 
         thread = threading.Thread(target=work, daemon=True)
+        running = (thread, cancel)
+        _PREFETCHES.add(running)
         thread.start()
         self._full_prefetch = (params, thread, out, cancel)
 
     def stitch(self, config: Optional[Config] = None) -> "Panorama":
         from simplepanorama_tpu_torch import stitcher
-        # before the BA captures its CUDA graphs: a CUDA call from another
-        # thread invalidates a capture in the default (global) mode
+        # the prefetch in flight is for the result this stitch replaces:
+        # its decode and its stack would compete with the stitch for the
+        # host and the card (a capture of the BA would not fail by it:
+        # ba.LMProgram captures thread-local)
         self._stop_full_prefetch()
         self.config = config or Config()
         self.result, self.stitch_params, self.connected = \
@@ -222,8 +259,9 @@ class Panorama:
         at init_size; _panorama.cpp:259-354), cached until the next
         stitch() or set_config(). It joins the background prefetch of this
         result and renders from its source stack (raising the prefetch's
-        error, if it had one), or decodes the images itself when there is
-        none. ``roi`` is (x, y, w, h) in preview coordinates, rescaled
+        decode error, if it had one; after an upload that ran out of
+        memory, from its decoded images through the chunked route), or
+        decodes the images itself when there is none. ``roi`` is (x, y, w, h) in preview coordinates, rescaled
         like _panorama.cpp:547-569."""
         from simplepanorama_tpu_torch import stitcher
         if self.stitch_params is None:
@@ -237,6 +275,7 @@ class Panorama:
                 self.prefetch_stats = {
                     "decode_s": out.get("decode_s"),
                     "upload_s": out.get("upload_s"),
+                    "upload_oom": out.get("upload_oom", False),
                     "join_wait_s": time.perf_counter() - t0}
                 # the render takes the images and the stack; once it has
                 # them, the cached panorama serves later calls

@@ -23,7 +23,8 @@ Two incremental loops, as in the JAX package:
     card.
   * ``graph_cut``, the per-image host loop over the per-image crops, which
     set_config takes on the CPU; its ``_solve_cut`` picks the solver: the
-    native Dinic (native.py) for CPU tensors, else grid_mincut_auto. In a
+    native Dinic (native.py) for CPU tensors (the plain solver where it
+    cannot be built), else grid_mincut_auto. In a
     world of several ranks every rank holds the whole graph and solves it
     itself: the column-sharded solver (parallel/dist_mincut.py) runs the
     plain push-relabel's arithmetic as PyTorch ops, far slower than
@@ -32,6 +33,7 @@ Two incremental loops, as in the JAX package:
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from simplepanorama_tpu_torch.geometry.canvas import get_pan_dimension
-from simplepanorama_tpu_torch.ops.maxflow import grid_mincut_auto
+from simplepanorama_tpu_torch.ops.maxflow import grid_mincut, grid_mincut_auto
 
 _SEED_W = 5000.0
 _EPS = 1e-6
@@ -99,14 +101,38 @@ def _solve_cut(wh, wv, excess, obj, mask2):
     """Min-cut dispatch (the JAX package's _solve_cut): the native Dinic
     solver for CPU tensors (the reference's BK slot), else
     grid_mincut_auto (kernel 1 or 2 on the card), in a world of any size.
-    A failed native build raises. Returns the element's cut mask: the
-    source side on the overlap, ``mask2`` elsewhere."""
+    Where the native solver cannot be built (native.NativeUnavailable),
+    a CPU cut takes the plain solver (grid_mincut on the CPU tensors,
+    ops/maxflow.grid_mincut_ref) and the process warns once: the JAX
+    package falls back to its own solver on any error of the native one,
+    the port on a failed build alone. Returns the element's cut mask:
+    the source side on the overlap, ``mask2`` elsewhere."""
     if wh.device.type == "cpu":
-        from simplepanorama_tpu_torch.native import grid_mincut_native
-        side = torch.from_numpy(grid_mincut_native(wh, wv, excess, obj)[0])
+        from simplepanorama_tpu_torch import native
+        try:
+            side = torch.from_numpy(
+                native.grid_mincut_native(wh, wv, excess, obj)[0])
+        except native.NativeUnavailable as e:
+            _warn_native_unavailable(e)
+            side = grid_mincut(wh, wv, excess, obj)
     else:
         side = grid_mincut_auto(wh, wv, excess, obj)
     return torch.where(obj, side, mask2 > 0)
+
+
+# set at the first warning: one warning per process (two threads that
+# race on it may both warn, which does no harm)
+_NATIVE_WARNED = False
+
+
+def _warn_native_unavailable(err: Exception) -> None:
+    """Warn, once per process, that CPU cuts take the plain solver."""
+    global _NATIVE_WARNED
+    if not _NATIVE_WARNED:
+        _NATIVE_WARNED = True
+        warnings.warn(f"the native min-cut solver is unavailable, CPU seams "
+                      f"take the plain solver (ops/maxflow.grid_mincut_ref)"
+                      f": {err}", RuntimeWarning, stacklevel=3)
 
 
 def graph_cut(images: Sequence, masks: Sequence,

@@ -18,8 +18,9 @@ flag every few trials: the counterpart of the JAX package's one compiled
 program per chunk. As the JAX package's jit cache keeps that program for
 the process, ba.program keeps the graph: a later stitch whose bucket has
 the same shapes loads its match tables into it and replays, capturing
-nothing (ba.release_programs() drops them all). In a world of several
-ranks the matches of every chunk are split across the ranks
+nothing (ba.release_programs() drops them all); a chunk holds its
+program's lock, so stitches in several threads stay apart. In a world
+of several ranks the matches of every chunk are split across the ranks
 (parallel.dist_ba), and on the card the bucket's graph holds the trial's
 all_reduces too; such graphs live for one call. The additions themselves
 (the rotation init's SVD) run eagerly, once each.
@@ -27,6 +28,7 @@ all_reduces too; such graphs live for one call. The additions themselves
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -252,9 +254,10 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     (h, w) of the global image list, ``focal`` the scene estimate.
     ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
     each chunk of the schedule as its bucket's CUDA graph, replayed, on
-    the card: ba.program's kept LMProgram of the bucket's shapes, loaded
-    with this problem's match tables, captured only when the process has
-    none yet (a chunk's LMCounts count the captures it made);
+    the card: ba.program's kept LMProgram of the bucket's shapes, held by
+    this thread for the chunk, loaded with this problem's match tables,
+    captured only when the process has none yet
+    (a chunk's LMCounts count the captures it made);
     ``fused=False``, and every run on the CPU, runs the same trial
     eagerly. Progress and cancellation are per chunk. ``device`` is the
     card unless the caller asks for another.
@@ -337,24 +340,26 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             cams_c = ba.CamState(cams.focal[:n_cap], cams.ppal[:n_cap],
                                  cams.rotvec[:n_cap], sl(cams.b))
             active_c = active[:n_cap].clone()
-            program = ws = None
+            held, ws = contextlib.nullcontext(), None
             if mesh is not None:
                 data_c = shard_matches(data_c, mesh)
                 cams_c = cams_c._replace(b=cams_c.b[mesh.rank::world])
             if on_card and fused and mesh is None:
-                program = ba.program(data_c, n_cap, bool(cfg.fast))
+                # the kept program, no other thread's until the chunk ends
+                held = ba.program(data_c, n_cap, bool(cfg.fast))
             elif on_card and fused:
-                program = programs.get((n_cap, m_cap))
-                if program is None:
-                    program = programs[n_cap, m_cap] = ba.LMProgram(
+                if (n_cap, m_cap) not in programs:
+                    programs[n_cap, m_cap] = ba.LMProgram(
                         data_c, n_cap, bool(cfg.fast), group=mesh.group)
+                held = contextlib.nullcontext(programs[n_cap, m_cap])
             elif on_card:
                 ws = ba_kernel.workspace(m_cap // world, n_cap, device)
-            cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
-                                  order_conns, H_pair, vaug,
-                                  float(cfg.lambda_), bool(cfg.fast),
-                                  program, ws,
-                                  None if mesh is None else mesh.group)
+            with held as program:
+                cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
+                                      order_conns, H_pair, vaug,
+                                      float(cfg.lambda_), bool(cfg.fast),
+                                      program, ws,
+                                      None if mesh is None else mesh.group)
             if mesh is not None:
                 cams_c = cams_c._replace(b=unshard_matches(cams_c.b, mesh))
             cams = ba.CamState(

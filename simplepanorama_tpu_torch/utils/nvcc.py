@@ -33,6 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCKS: Dict[str, threading.Lock] = defaultdict(threading.Lock)
 _LOCKS_GUARD = threading.Lock()
 _LIBS: Dict[str, Tuple[ctypes.CDLL, float]] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launches(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``, a kernel wrapper's launch count,
+    under one lock: stitches in several threads launch the kernels."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
 
 
 def _nvcc() -> str:

@@ -293,6 +293,68 @@ def test_prefetched_stack_on_card_renders_as_synchronous(cuda, tmp_path,
     assert np.array_equal(full, want)
 
 
+def test_prefetch_out_of_memory_renders_chunked_on_card(cuda, tmp_path,
+                                                       monkeypatch):
+    """The prefetch of test_prefetched_stack_on_card_renders_as_synchronous
+    with its upload out of device memory (fullres.prefetch_sources
+    raising torch.OutOfMemoryError): get_panorama renders the decoded
+    images through the chunked route on the card, equal bit for bit to
+    the synchronous render, and prefetch_stats says so."""
+    from simplepanorama_tpu_torch import stitcher
+    from simplepanorama_tpu_torch.render import fullres
+    paths, yaws, f = fkh360_views(2, 640, yaw_step_deg=20.0, hfov_deg=45.0,
+                                  out_dir=str(tmp_path))
+    fp = f * 320 / 640
+    K = np.array([[fp, 0, 160], [0, fp, 160], [0, 0, 1.0]])
+    Rs = [np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]])
+          for a in np.radians(yaws)]
+    res = StitchResult(rot=np.stack(Rs), K=np.stack([K, K]),
+                       adj=np.array([[0, 0.5], [0, 0]]),
+                       connectivity=np.array([1, 1]),
+                       order=[(0, -1), (1, 0)], nodes=[0, 1], center=0,
+                       sizes=[(320, 320), (320, 320)])
+
+    def out_of_memory(*a, **kw):
+        raise torch.OutOfMemoryError("CUDA out of memory (test)")
+    monkeypatch.setattr(fullres, "prefetch_sources", out_of_memory)
+    p = Panorama(paths, device=cuda)
+    p.result = res
+    p.set_config(Config(cut=True, init_size=320, gain_compensation=True))
+    p.get_preview()
+    full = p.get_panorama()
+    assert p.prefetch_stats["upload_oom"] is True
+    assert p.stitch_params.state.imgs.device.type == "cuda"
+    want = stitcher.render_full_from_imageset(p.stitch_params, p.config,
+                                              p.images)
+    assert np.array_equal(full, want)
+
+
+def test_fresh_process_first_and_second_stitch_equal(cuda, tmp_path):
+    """fresh_trace.py in a process of its own: two cut=True stitches of a
+    12-view 400-px loop in turn give equal cameras and preview bytes,
+    the second captures no CUDA graph, and kernel 3 launches once per
+    trial executed in each."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    fkh360_views(12, 400, out_dir=str(tmp_path))
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, str(root / "fresh_trace.py"),
+                           str(tmp_path)], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    first, second = [json.loads(x) for x in proc.stdout.splitlines()
+                     if x.startswith('{"stitch"')]
+    assert first["connected"] == second["connected"] == [12, 12]
+    assert first["cameras"] == second["cameras"]
+    assert first["preview"] == second["preview"]
+    assert first["lm"]["graphs"] >= 1 and second["lm"]["graphs"] == 0
+    for row in (first, second):
+        assert row["launches"]["assemble_streams"] == row["lm"]["executed"]
+
+
 def test_render_flat_runs_on_card_by_default(cuda):
     """render/flat.render_flat and pairwise_stitch with no device warp on
     the card; their panoramas equal the CPU's within 1 level (a float32
@@ -484,9 +546,8 @@ def _run_ba(args, fused, fast=False):
 def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
                                                         fast):
     """Slice 1's BA with fused=True captures one CUDA graph per capacity
-    bucket of its schedule, with host syncs raising
-    (torch.cuda.set_sync_debug_mode("error") around the warm-up, the
-    capture and every replay: a sync would have raised here), and
+    bucket of its schedule (a host sync inside the trial would have
+    failed the capture: the capturing thread may make none), and
     launches kernel 3 once per trial executed; against fused=False (the
     same trial, eager) the same trials and accepted steps, and cameras
     within 1e-5 relative. The process's kept programs are released
@@ -552,18 +613,22 @@ def test_replayed_trial_equals_eager_trial(cuda, slice1_ba, fast):
     """One replay of the captured trial against the same trial run
     eagerly from the same state on the card (the same kernels in the
     same order): every state tensor equal, bit for bit. The eager trial
-    runs with host syncs raising."""
+    runs with host syncs raising (torch.cuda.set_sync_debug_mode)."""
     from simplepanorama_tpu_torch import ba
     prog, cams, active = _program(slice1_ba, fast)
+    mode = torch.cuda.get_sync_debug_mode()
     try:
         prog._capture()   # runs the state's first trial, then captures
+        torch.cuda.set_sync_debug_mode("error")
         with ba._device_trials(True):
             want = ba.lm_trial(prog.st, prog.pb, fast)
+        torch.cuda.set_sync_debug_mode(mode)
         prog.graph.replay()
         torch.cuda.synchronize()
         for w, g in zip(prog._tensors(want), prog._tensors(prog.st)):
             assert torch.equal(w, g)
     finally:
+        torch.cuda.set_sync_debug_mode(mode)
         prog.close()
 
 
@@ -606,11 +671,11 @@ def test_kept_program_replays_another_problem_of_its_bucket(cuda, fast):
     try:
         for seed in (2, 3, 2):
             cams, data = problems[seed]
-            prog = ba.program(data, 4, fast)
-            assert graph is None or prog.graph is graph
-            before = ba_kernel.assemble_streams.launches
-            got, executed, _ = prog.run(cams, active, 0.05)
-            torch.cuda.synchronize()
+            with ba.program(data, 4, fast) as prog:
+                assert graph is None or prog.graph is graph
+                before = ba_kernel.assemble_streams.launches
+                got, executed, _ = prog.run(cams, active, 0.05)
+                torch.cuda.synchronize()
             assert ba_kernel.assemble_streams.launches - before == executed
             graph = prog.graph
             fresh = ba.LMProgram(data, 4, fast)
@@ -625,6 +690,102 @@ def test_kept_program_replays_another_problem_of_its_bucket(cuda, fast):
         assert not _same_run(kept[2], kept[3])
         assert len(ba._PROGRAMS) == 1
     finally:
+        ba.release_programs()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_threads_share_a_kept_program(cuda, fast):
+    """Two threads, each with its own problem of one bucket (one kept
+    program), take the program through ba.program and run it, at
+    once, four times over (the first after ba.release_programs(), so one
+    of them captures while the other waits or works): every run equals
+    a fresh LMProgram's run of its problem bit for bit, and kernel 3
+    launched once per trial executed in the two threads together."""
+    import concurrent.futures
+    import threading
+    from simplepanorama_tpu_torch import ba
+    problems = [_ba_problem_card(seed=seed) for seed in (2, 3)]
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    want = []
+    for cams, data in problems:
+        fresh = ba.LMProgram(data, 4, fast)
+        try:
+            want.append(fresh.run(cams, active, 0.05)[0])
+        finally:
+            fresh.close()
+    assert not _same_run(*want)
+
+    def run(k, meet):
+        cams, data = problems[k]
+        meet.wait()
+        with ba.program(data, 4, fast) as prog:
+            got, executed, _ = prog.run(cams, active, 0.05)
+        torch.cuda.synchronize()
+        return got, executed
+    ba.release_programs()
+    try:
+        for _ in range(4):
+            meet = threading.Barrier(2, timeout=60)
+            before = ba_kernel.assemble_streams.launches
+            with concurrent.futures.ThreadPoolExecutor(2) as ex:
+                futs = [ex.submit(run, k, meet) for k in (0, 1)]
+                out = [f.result(timeout=300) for f in futs]
+            assert ba_kernel.assemble_streams.launches - before == \
+                sum(n for _, n in out)
+            for (got, _), w in zip(out, want):
+                assert _same_run(got, w)
+        assert len(ba._PROGRAMS) == 1
+    finally:
+        ba.release_programs()
+
+
+def test_card_linalg_stays_on_cusolver_beside_a_ba_thread(cuda):
+    """checked_device("cuda") puts the card's linear algebra on cuSOLVER
+    for the process, and LM runs in another thread (eager trials, then a
+    kept program's capture and replays) leave it so: while they run and
+    after, this thread's batched 3x3 inverses (adjacency's shape) give
+    the bits they gave before the runs."""
+    import threading
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.utils.device import checked_device
+    cusolver = torch._C._LinalgBackend.Cusolver
+    checked_device("cuda")
+    assert torch.backends.cuda.preferred_linalg_library() == cusolver
+    rng = np.random.default_rng(7)
+    H = torch.as_tensor(rng.normal(size=(64, 3, 3)) + 3.0 * np.eye(3),
+                        dtype=torch.float32, device="cuda")
+    want = torch.linalg.inv(H)
+    cams, data = _ba_problem_card(seed=2)
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    done, errors = threading.Event(), []
+
+    def run():
+        try:
+            ba.lm_run_eager(cams, data, active, 0.05)
+            with ba.program(data, 4, False) as prog:
+                prog.run(cams, active, 0.05)
+            torch.cuda.synchronize()
+        except BaseException as e:      # raised in the test's thread
+            errors.append(e)
+        finally:
+            done.set()
+    ba.release_programs()
+    worker = threading.Thread(target=run)
+    worker.start()
+    try:
+        seen = 0
+        while not done.is_set():
+            assert torch.backends.cuda.preferred_linalg_library() == \
+                cusolver
+            assert torch.equal(torch.linalg.inv(H), want)
+            seen += 1
+        worker.join()
+        assert not errors, errors
+        assert seen > 0
+        assert torch.backends.cuda.preferred_linalg_library() == cusolver
+        assert torch.equal(torch.linalg.inv(H), want)
+    finally:
+        worker.join()
         ba.release_programs()
 
 

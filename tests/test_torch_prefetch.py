@@ -23,6 +23,7 @@ from simplepanorama_tpu.stitch import StitchResult as JStitchResult
 import simplepanorama_tpu_torch as T
 from simplepanorama_tpu_torch import Config as TConfig
 from simplepanorama_tpu_torch import io as tio
+from simplepanorama_tpu_torch import pipeline as tpipeline
 from simplepanorama_tpu_torch import stitcher as tstitcher
 from simplepanorama_tpu_torch.convert import stitch_result_from_numpy
 from simplepanorama_tpu_torch.fixtures import fkh360_views
@@ -185,6 +186,37 @@ def test_new_result_cancels_and_joins_the_stale_prefetch(views,
     monkeypatch.setattr(tio.ImageSet, "load_connected_images", load)
     assert np.array_equal(full, tstitcher.render_full_from_imageset(
         pt.stitch_params, pt.config, pt.images))
+
+
+def test_exit_cancels_and_joins_a_running_prefetch(views, monkeypatch):
+    """At exit (pipeline._join_prefetches, registered with atexit) a
+    prefetch still decoding is cancelled and its thread joined, while
+    the interpreter is whole: a daemon thread inside a torch call when
+    it finalizes would abort the process. The upload after the decode
+    does not run, and the thread leaves the set of running prefetches
+    when it ends."""
+    uploads, started = [], []
+    load = tio.ImageSet.load_connected_images
+
+    def held(self, *a, **kw):      # in flight until its prefetch is
+        t0 = time.perf_counter()   # cancelled
+        while not (started and started[0][3].is_set()):
+            assert time.perf_counter() - t0 < 60
+            time.sleep(0.01)
+        return load(self, *a, **kw)
+
+    def upload(*a, **kw):
+        uploads.append(threading.current_thread())
+    monkeypatch.setattr(tio.ImageSet, "load_connected_images", held)
+    monkeypatch.setattr(tfull, "prefetch_sources", upload)
+    pt = _port(views)
+    started.append(pt._full_prefetch)
+    _, thread, out, cancel = started[0]
+    assert thread.is_alive() and (thread, cancel) in tpipeline._PREFETCHES
+    tpipeline._join_prefetches()
+    assert cancel.is_set() and not thread.is_alive()
+    assert not uploads and "stack" not in out and "error" not in out
+    assert (thread, cancel) not in tpipeline._PREFETCHES
 
 
 def test_prefetch_error_is_raised_by_get_panorama(views, monkeypatch):

@@ -85,6 +85,12 @@ def _run(prog, cams):
     return res, executed
 
 
+def _kept(**kw):
+    """ba.program's program for ``kw``, its lock let go."""
+    with tba.program(**kw) as prog:
+        return prog
+
+
 def _same(a, b):
     """Two LMResults equal bit for bit."""
     assert int(a.n_iter) == int(b.n_iter)
@@ -112,8 +118,8 @@ def test_kept_program_replays_on_loaded_tables(captures, fast):
     runs = {}
     for seed in (5, 6, 5):
         data, cams = _problem(seed)
-        prog = tba.program(data, 4, fast)
-        got, executed = _run(prog, cams)
+        with tba.program(data, 4, fast) as prog:
+            got, executed = _run(prog, cams)
         fresh = tba.LMProgram(data, 4, fast)
         want, want_executed = _run(fresh, cams)
         _same(got, want)
@@ -135,11 +141,11 @@ def test_program_owns_its_tables(captures):
     """The program copies the caller's tables: writing over them after
     ba.program returns changes nothing in its next run."""
     data, cams = _problem(5)
-    prog = tba.program(data, 4, False)
-    want, _ = _run(prog, cams)
-    for t in data:
-        t.zero_()
-    got, _ = _run(prog, cams)
+    with tba.program(data, 4, False) as prog:
+        want, _ = _run(prog, cams)
+        for t in data:
+            t.zero_()
+        got, _ = _run(prog, cams)
     _same(got, want)
     assert all(t.data_ptr() != u.data_ptr() for t, u in
                zip(prog.pb.data, data))
@@ -153,8 +159,8 @@ def test_load_data_copies_in_place_and_refuses_other_shapes(captures):
     shape or type raise."""
     a, cams = _problem(5)
     b, _ = _problem(6)
-    prog = tba.program(a, 4, False)
-    _run(prog, cams)
+    with tba.program(a, 4, False) as prog:
+        _run(prog, cams)
     ptrs = [t.data_ptr() for t in (*prog.pb.data, prog.pb.mi, prog.pb.mj)]
     prog.load_data(b)
     assert ptrs == [t.data_ptr() for t in (*prog.pb.data, prog.pb.mi,
@@ -185,9 +191,9 @@ def test_cache_key_takes_every_baked_shape(captures):
             dict(data=more_pairs, n_cams=4, fast=False),
             dict(data=data, n_cams=4, fast=False, max_iter=20),
             dict(data=data, n_cams=4, fast=False, read_every=4)]
-    progs = [tba.program(**kw) for kw in keys]
+    progs = [_kept(**kw) for kw in keys]
     assert len({id(p) for p in progs}) == len(keys) == len(tba._PROGRAMS)
-    assert tba.program(**keys[0]) is progs[0]
+    assert _kept(**keys[0]) is progs[0]
     _run(progs[0], cams)
     _run(progs[0], cams)
     assert len(captures) == 1
@@ -207,10 +213,10 @@ def test_lm_chunk_counts_only_its_own_captures(captures):
     for _ in range(2):
         active = torch.zeros(4, dtype=torch.bool)
         active[0] = True
-        prog = tba.program(data, 4, False)
-        cams_c, counts = tstitch._lm_chunk(
-            cams, active, data, 1, L, [0, 0, 1, 2], H_pair,
-            np.arange(L), 0.05, False, prog)
+        with tba.program(data, 4, False) as prog:
+            cams_c, counts = tstitch._lm_chunk(
+                cams, active, data, 1, L, [0, 0, 1, 2], H_pair,
+                np.arange(L), 0.05, False, prog)
         out.append((cams_c, counts))
     (c1, n1), (c2, n2) = out
     assert (n1.graphs, n2.graphs) == (1, 0) and n2.capture_s == 0.0
