@@ -90,7 +90,8 @@ Phases, each printing one line per input:
           to exit, imports, stage walls; equal preview files), and two
           cut=True stitches of slice 1's loop in one fresh process
           (the second captures nothing; equal cameras and preview
-          bytes; kernel 1 11 launches a stitch);
+          bytes; kernel 1 11 launches a stitch); neither CLI process
+          nor the first stitch imports torch._dynamo;
   two_card with two or more cards, slice 2 in a world of 2 ranks over
           NCCL (one process a card; its BA splits the matches, each
           bucket's trial a CUDA graph with its all-reduces) against the
@@ -1996,7 +1997,11 @@ def _fresh_phase(torch, card, views3, loop700, tmp):
     SPT_SYNC_STAGES=1. Gates: the two CLI processes' preview files equal
     byte for byte; the second stitch captures no graph; both stitches
     give equal cameras and preview bytes; kernel 1 launches 11 times a
-    stitch and kernel 3 once per trial executed. Prints one line per
+    stitch and kernel 3 once per trial executed; neither CLI process
+    (its -X importtime report) nor the fresh process's first stitch
+    imported torch._dynamo (the BA's pair Jacobian is written out, no
+    forward-mode AD; fresh_trace.py names the importer if one does).
+    Prints one line per
     process and one per stitch; returns the stitches' launches of
     kernels 1 and 3. A line first says whether Python may write bytecode
     and whether torch's is cached."""
@@ -2018,11 +2023,14 @@ def _fresh_phase(torch, card, views3, loop700, tmp):
     if cli[0]["preview_file"] != cli[1]["preview_file"]:
         raise RuntimeError("fresh: two CLI processes wrote different "
                            "previews")
+    if any(c["dynamo_imported"] for c in cli):
+        raise RuntimeError("fresh: a CLI process imported torch._dynamo")
     wall, imports, (first, second) = fresh_trace.run_stitches(here, loop700)
     for row in (first, second):
         _line("fresh", command="fresh_trace.py (two cut=True stitches)",
               **row, **imports, process_wall_s=wall, device=card)
-    ok = (second["lm"]["graphs"] == 0
+    ok = (first["dynamo_imported"] is False
+          and second["lm"]["graphs"] == 0
           and first["cameras"] == second["cameras"]
           and first["preview"] == second["preview"]
           and all(r["launches"]["grid_mincut"] == 11

@@ -2,7 +2,7 @@
 """What a fresh process pays: its first stitches, stage by stage, on one
 CUDA card.
 
-    python3 fresh_trace.py VIEWS [--profile | --cprofile]
+    python3 fresh_trace.py VIEWS [--profile | --cprofile] [--trial-kernels]
     python3 fresh_trace.py VIEWS --cli-views DIR --trees A B
 
 The first form is the fresh process, as every command of the port's CLI
@@ -25,18 +25,27 @@ stitch. With --cprofile each stitch runs under cProfile instead (the
 host's Python and the C functions it calls, imports among them): its
 line adds the 25 functions of the most cumulative time and the 15 of
 the most own time. Either profiler adds its own costs; take the walls
-from a run without one. torch.profiler also imports torch._dynamo when
-it starts, which a fresh process otherwise imports in its first BA
-trial (the chain rule's first forward-mode add): under it, the first
-stitch looks seconds cheaper than a user's.
+from a run without one. Each stitch's line also says whether
+torch._dynamo was imported by the stitch's end (``dynamo_imported``)
+and, if the process imported it at all, from where
+(``dynamo_importer``: the innermost file:line frames of the first
+import). torch.profiler imports torch._dynamo itself when it starts, so
+under --profile ``dynamo_imported`` is null and the first stitch looks
+seconds cheaper than a user's wherever a stitch would import it.
+With --trial-kernels a third stitch follows, its BA chunks each under
+torch.profiler (device activity only): one more line gives the kernels
+the card ran and their device time per LM trial executed (no wall: the
+profiler's first start imports torch._dynamo).
 
 The second form compares two checkouts (A and B, each the root of one)
-in turns, A B B A: in each turn, the first form in a
-fresh process from that checkout's root, then the CLI as a user runs it
+in turns, A B B A: in each turn, the first form (with
+--trial-kernels) in a fresh process from that checkout's root, then the
+CLI as a user runs it
 (python -X importtime -m simplepanorama_tpu_torch.cli DIR --fast
 --timing --save-state S -o P) in another. One JSON line per process:
-its wall from launch to exit, its imports (-X importtime), its stage
-walls, and the digests of its results.
+its wall from launch to exit, its imports (-X importtime) and whether
+they name torch._dynamo, its stage walls, and the digests of its
+results.
 """
 
 import argparse
@@ -61,14 +70,15 @@ def _digest(*chunks):
     return h.hexdigest()[:16]
 
 
+def _device_us(event):
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
 def _ops(prof):
     """{op name: (self CPU us, calls, self device us)} of a profile."""
-    out = {}
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total",
-                      getattr(e, "self_cuda_time_total", 0.0))
-        out[e.key] = (e.self_cpu_time_total, e.count, dev)
-    return out
+    return {e.key: (e.self_cpu_time_total, e.count, _device_us(e))
+            for e in prof.key_averages()}
 
 
 def _smi():
@@ -82,6 +92,30 @@ def imports_s(stderr):
     cumulative time of each top-level import, summed."""
     return sum(int(m.group(1)) for m in re.finditer(
         r"^import time:\s+\d+ \|\s+(\d+) \| \S", stderr, re.M)) / 1e6
+
+
+def dynamo_in_importtime(stderr):
+    """Whether a -X importtime report names torch._dynamo."""
+    return re.search(r"^import time:.*\|\s*torch\._dynamo\s*$", stderr,
+                     re.M) is not None
+
+
+class _ImportWatch:
+    """A meta path finder that finds nothing and notes where ``name`` is
+    first imported from: the innermost frames outside importlib, as
+    file:line."""
+
+    def __init__(self, name):
+        self.name, self.where = name, None
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname == self.name and self.where is None:
+            import traceback
+            self.where = [f"{f.filename}:{f.lineno}"
+                          for f in traceback.extract_stack()[:-1]
+                          if not f.filename.startswith("<frozen")
+                          and "importlib" not in f.filename][-8:]
+        return None
 
 
 def _env():
@@ -111,6 +145,7 @@ def run_cli(tree, views, out_dir, tag):
         preview = fh.read()
     state = np.load(state_p, allow_pickle=False)
     return {"process_wall_s": wall, "imports_s": imports_s(proc.stderr),
+            "dynamo_imported": dynamo_in_importtime(proc.stderr),
             "timing_report_s": {m.group(1): float(m.group(2)) for m in
                                 re.finditer(r"^(\w+): ([0-9.]+)s x\d+$",
                                             proc.stdout, re.M)},
@@ -118,16 +153,17 @@ def run_cli(tree, views, out_dir, tag):
             "cameras": _digest(state["K"], state["rot"])}
 
 
-def run_stitches(tree, views):
-    """The first form in a process of its own from ``tree``'s root (this
-    script, with the package of ``tree``). Returns its wall from launch
-    to exit, its imports row and its stitch rows."""
+def run_stitches(tree, views, flags=()):
+    """The first form, with ``flags``, in a process of its own from
+    ``tree``'s root (this script, with the package of ``tree``). Returns
+    its wall from launch to exit, its imports row and its other rows."""
     code = ("import runpy, sys; sys.argv = sys.argv[1:]; "
             f"runpy.run_path({os.path.abspath(__file__)!r}, "
             "run_name='__main__')")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", code, "fresh_trace.py", views], cwd=tree,
+        [sys.executable, "-c", code, "fresh_trace.py", views, *flags],
+        cwd=tree,
         env=_env(),
         capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
@@ -149,10 +185,43 @@ def _functions(prof, key, n):
     return sorted(rows, key=lambda r: -(r[1] if key == "cum" else r[2]))[:n]
 
 
-def stitch_in_process(views, profile, cprofile=False):
-    """The first form: STITCHES stitches of ``views`` in this process;
-    prints what the module docstring says."""
+def _trial_kernels(torch, stitch, run):
+    """Kernels and their device time per LM trial executed over the BA
+    chunks of ``run()``, each chunk under torch.profiler (device
+    activity only; copies and memsets not counted as kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    chunk = stitch._lm_chunk
+    tally = {"kernels": 0, "device_us": 0.0, "executed": 0}
+
+    def profiled(*a, **kw):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = chunk(*a, **kw)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if _device_us(e) > 0 and not e.key.startswith(("Memcpy",
+                                                           "Memset")):
+                tally["kernels"] += e.count
+                tally["device_us"] += _device_us(e)
+        tally["executed"] += out[1].executed
+        return out
+    stitch._lm_chunk = profiled
+    try:
+        run()
+    finally:
+        stitch._lm_chunk = chunk
+    n = max(1, tally["executed"])
+    return {"trials_executed": tally["executed"],
+            "kernels_per_trial": tally["kernels"] / n,
+            "device_ms_per_trial": tally["device_us"] / 1e3 / n}
+
+
+def stitch_in_process(views, profile, cprofile=False, trial_kernels=False):
+    """The first form: STITCHES stitches of ``views`` in this process
+    (and the --trial-kernels stitch); prints what the module docstring
+    says."""
     os.environ["SPT_SYNC_STAGES"] = "1"
+    watch = _ImportWatch("torch._dynamo")
+    sys.meta_path.insert(0, watch)
     t0 = time.perf_counter()
     import numpy as np
     import torch
@@ -213,7 +282,10 @@ def stitch_in_process(views, profile, cprofile=False):
                "cameras": _digest(np.asarray(pano.result.K),
                                   np.asarray(pano.result.rot)),
                "preview": _digest(np.ascontiguousarray(preview)),
-               "connected": list(pano.connected)}
+               "connected": list(pano.connected),
+               "dynamo_imported": (None if profile else
+                                   "torch._dynamo" in sys.modules),
+               "dynamo_importer": watch.where}
         if cprofile:
             cprof.disable()
             row["host_functions_cum"] = _functions(cprof, "cum", 25)
@@ -234,8 +306,15 @@ def stitch_in_process(views, profile, cprofile=False):
         pano._stop_full_prefetch()
         del pano, preview
     stitch._lm_chunk = chunk
+    sys.meta_path.remove(watch)
     for row in rows:
         print(json.dumps(row), flush=True)
+    if trial_kernels:
+        def run():
+            pano = Panorama(paths, device="cuda").stitch(Config(cut=True))
+            pano._stop_full_prefetch()
+        print(json.dumps({"trial_kernels": _trial_kernels(torch, stitch,
+                                                          run)}), flush=True)
 
 
 def in_turns(views, cli_views, trees):
@@ -244,11 +323,13 @@ def in_turns(views, cli_views, trees):
     with tempfile.TemporaryDirectory() as tmp:
         for r in range(ROUNDS):
             for tree in (trees if r % 2 == 0 else trees[::-1]):
-                wall, imports, rows = run_stitches(tree, views)
+                wall, imports, rows = run_stitches(tree, views,
+                                                   ["--trial-kernels"])
                 print(json.dumps({"tree": tree, "round": r + 1,
                                   "command": "fresh_trace.py (stitches)",
                                   "process_wall_s": wall, **imports,
-                                  "stitches": rows}), flush=True)
+                                  "stitches": rows[:-1], **rows[-1]}),
+                      flush=True)
                 print(json.dumps({"tree": tree, "round": r + 1,
                                   "command": "cli", **run_cli(
                                       tree, cli_views, tmp, f"{r}")}),
@@ -260,13 +341,15 @@ def main(argv=None):
     p.add_argument("views")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--cprofile", action="store_true")
+    p.add_argument("--trial-kernels", action="store_true")
     p.add_argument("--cli-views")
     p.add_argument("--trees", nargs=2)
     args = p.parse_args(argv)
     if args.trees:
         in_turns(args.views, args.cli_views, args.trees)
     else:
-        stitch_in_process(args.views, args.profile, args.cprofile)
+        stitch_in_process(args.views, args.profile, args.cprofile,
+                          args.trial_kernels)
 
 
 if __name__ == "__main__":

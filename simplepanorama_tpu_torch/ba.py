@@ -22,9 +22,11 @@ included when the matches are split across ranks, and ``program`` keeps
 each single-card bucket's program for the process, as the JAX package's
 jit cache keeps its compiled LM (``release_programs`` drops them), lent
 to one thread at a time. The
-per-pair H chain and its Jacobian come from torch.func.jacfwd + vmap
-over the realized camera pairs; the per-match table expansion is an
-index gather with an explicit clamp. Both objectives are ported: the
+per-pair H chain comes from vmap over the realized camera pairs and its
+Jacobian is written out by hand (``_pair_H_jac_batch``: the tangents of
+the same operations, forward-mode AD's result with no AD and no
+torch.func transform); the per-match table expansion is an index gather
+with an explicit clamp. Both objectives are ported: the
 relaxed one (fast=False) and Lowe's (fast=True), which keeps b = t fixed
 and solves U* da = e_A.
 """
@@ -39,9 +41,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
-from simplepanorama_tpu_torch.geometry.rotation import rodrigues
+from simplepanorama_tpu_torch.geometry.rotation import (rodrigues,
+                                                        rodrigues_jac)
 from simplepanorama_tpu_torch.ops import ba_kernel
 from simplepanorama_tpu_torch.utils.device import (CAPTURE_LOCK,
                                                    cusolver_linalg)
@@ -106,7 +109,7 @@ def _K_of(focal, ppal):
 
 
 def _K_inv_of(focal, ppal):
-    inv_f = torch.reciprocal(focal)   # 1.0 / x gives a float64 tangent under jacfwd
+    inv_f = torch.reciprocal(focal)
     z = torch.zeros_like(focal)
     o = torch.ones_like(focal)
     return torch.stack([
@@ -125,17 +128,48 @@ def _pair_H(cam_i, cam_j):
 
 
 _pair_H_batch = vmap(_pair_H)
-_pair_H_jac = vmap(jacfwd(_pair_H, argnums=(0, 1)))
-# PyTorch's forward-mode AD levels, which jacfwd enters and leaves, are
-# one stack for the process: a level left while another thread's is open
-# raises. Stitches in several threads take their Jacobians in turn.
-_FORWARD_AD_LOCK = threading.Lock()
+
+
+def _K_inv_tangents(focal, ppal):
+    """d K^-1 / d(f, px, py), (P, 3, 3, 3) with the direction at dim 1:
+    the JVP of ``_K_inv_of`` (d(1/f) = -(1/f)^2)."""
+    inv_f = torch.reciprocal(focal)
+    r2 = inv_f * inv_f
+    z = torch.zeros_like(focal)
+    row = lambda a, b, c: torch.stack([a, b, c], -1)
+    top2 = lambda r0, r1: torch.stack([r0, r1, row(z, z, z)], -2)
+    return torch.stack([
+        top2(row(-r2, z, ppal[..., 0] * r2), row(z, -r2, ppal[..., 1] * r2)),
+        top2(row(z, z, -inv_f), row(z, z, z)),
+        top2(row(z, z, z), row(z, z, -inv_f))], 1)
 
 
 def _pair_H_jac_batch(ci, cj):
-    with _FORWARD_AD_LOCK:
-        return _pair_H_jac(ci, cj)
-
+    """(dH/dcam_i, dH/dcam_j), each (P, 3, 3, 6), of H = K_j R_i^T R_j
+    K_i^-1 over the rows of ci, cj (P, 6), written out by hand: the
+    product rule along the chain's own association ((K_j R_i^T) R_j)
+    K_i^-1, each camera's six directions batched at dim 1. Forward-mode
+    AD adds a zero tangent for the other camera; it is left out, which
+    changes at most the sign of a zero."""
+    P = ci.shape[0]
+    K_j = _K_of(cj[:, 0], cj[:, 1:3])
+    K_i_inv = _K_inv_of(ci[:, 0], ci[:, 1:3])
+    R, dR = rodrigues_jac(torch.cat([ci[:, 3:6], cj[:, 3:6]]))
+    R_iT, R_j = R[:P].transpose(-1, -2), R[P:]
+    dR = dR.permute(0, 3, 1, 2)
+    dR_iT, dR_j = dR[:P].transpose(-1, -2), dR[P:]
+    A = K_j @ R_iT
+    B = A @ R_j
+    # d K_j / d(f, px, py): diag(1, 1, 0), e0 e2^T, e1 e2^T
+    e = torch.eye(3, dtype=ci.dtype, device=ci.device)
+    dK_j = torch.stack([e - torch.outer(e[2], e[2]),
+                        torch.outer(e[0], e[2]), torch.outer(e[1], e[2])])
+    Kinv, R_jb = K_i_inv[:, None], R_j[:, None]
+    D_i = torch.cat([B[:, None] @ _K_inv_tangents(ci[:, 0], ci[:, 1:3]),
+                     ((K_j[:, None] @ dR_iT) @ R_jb) @ Kinv], 1)
+    D_j = torch.cat([((dK_j @ R_iT[:, None]) @ R_jb) @ Kinv,
+                     (A[:, None] @ dR_j) @ Kinv], 1)
+    return D_i.permute(0, 2, 3, 1), D_j.permute(0, 2, 3, 1)
 
 
 def _cam6(cams: CamState):

@@ -355,6 +355,48 @@ def test_fresh_process_first_and_second_stitch_equal(cuda, tmp_path):
         assert row["launches"]["assemble_streams"] == row["lm"]["executed"]
 
 
+@pytest.mark.parametrize("small", [False, True])
+def test_pair_jacobian_card_matches_cpu(cuda, small):
+    """ba._pair_H_jac_batch (the pair Jacobian written out by hand) on
+    4,096 pairs on the card against the CPU's, 2e-5 of each (3, 3, 6)
+    block's largest entry (tests/test_torch_pair_jac.py holds the CPU's
+    against jacfwd and the JAX package); rotations up to pi - 0.1, or
+    inside rodrigues' small-angle branch. Captured in a CUDA graph, as
+    every graphed LM trial runs it, its replay equals the eager call bit
+    for bit."""
+    from simplepanorama_tpu_torch import ba
+    rng = np.random.default_rng(31 + small)
+    c = np.empty((2, 4096, 6), np.float32)
+    c[..., 0] = rng.uniform(300.0, 1800.0, (2, 4096))
+    c[..., 1:3] = rng.uniform(0.0, 400.0, (2, 4096, 2))
+    d = rng.normal(size=(2, 4096, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mag = (rng.uniform(0.0, 0.99e-4, (2, 4096, 1)) if small
+           else rng.uniform(0.0, np.pi - 0.1, (2, 4096, 1)))
+    c[..., 3:6] = d * mag
+    want = ba._pair_H_jac_batch(*torch.from_numpy(c))
+    ci, cj = torch.from_numpy(c).to(cuda)
+    got = ba._pair_H_jac_batch(ci, cj)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == (4096, 3, 3, 6)
+        w = w.double()
+        err = (g.cpu().double() - w).abs().amax((1, 2, 3)) \
+            / w.abs().amax((1, 2, 3))
+        assert float(err.max()) <= 2e-5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ba._pair_H_jac_batch(ci, cj)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ba._pair_H_jac_batch(ci, cj)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, g in zip(out, got):
+        assert torch.equal(o, g)
+
+
 def test_render_flat_runs_on_card_by_default(cuda):
     """render/flat.render_flat and pairwise_stitch with no device warp on
     the card; their panoramas equal the CPU's within 1 level (a float32

@@ -110,9 +110,9 @@ def test_threads_on_two_keys_run_at_once(monkeypatch):
 
 def test_eager_runs_in_two_threads_equal_alone():
     """Two LM runs at once in two threads, as two stitches on the CPU run
-    them (ba.lm_run_eager: the chain rule's jacfwd in every trial): each
-    equals its run alone, bit for bit. (PyTorch's forward-mode AD levels
-    are one stack for the process; ba takes the Jacobians in turn.)"""
+    them (ba.lm_run_eager: the chain rule and the hand-written pair
+    Jacobian in every trial, no AD and no lock between the threads):
+    each equals its run alone, bit for bit."""
     problems = [_problem(5), _problem(6)]
     active = torch.ones(4, dtype=torch.bool)
 
