@@ -22,6 +22,13 @@ Phases, each printing one line per input:
           the 48x160 grid and on a seam graph from two 1400-px views at
           the block shape of slice 2 (over 1.2M cells), with kernel 1 on
           the same seam graph beside it (there it takes kernel 2's route);
+          then grid_mincut_auto, the seam dispatch, on that graph
+          (seam1400_crop: solved on its node box, the overlap band,
+          against the uncropped kernel 2, in turns, and against
+          grid_mincut_tiled_ref's side of the seam1400 check) and on the
+          middle of three such views against both neighbours
+          (seam1400_closing: a box over 0.9 of the grid, sent whole to
+          kernel 2, against kernel 2's plain version);
   crossover kernels 1 and 2 on seam graphs from two views of 850 to
           1000 px (kernel 1's route, both ms and cut values), and one BFS
           (maxflow.dist_to_sink) of each on a 128x128 serpentine maze:
@@ -38,7 +45,12 @@ Phases, each printing one line per input:
   slice2  a 12-view loop of 2800-px views through
           Panorama(paths, device="cuda").stitch(Config(cut=True,
           init_size=1400, gain_compensation=True)), then get_preview()
-          and get_panorama() (the full-res render), launches counted:
+          and get_panorama() (the full-res render), launches counted,
+          each of the 11 cuts with its node box, route (kernel 1
+          resident, kernel 1's tiled route, or kernel 2) and ms, each
+          launch checked against the crop rule of grid_mincut_auto,
+          and kernel 1 against grid_mincut_ref on the cropped planes of
+          the first cut of each of its routes (resident, tiled route):
           get_panorama joins the full-res prefetch that stitch() started
           (decode and upload under the preview); then the same render
           through the synchronous path and through a second prefetch, in
@@ -199,16 +211,15 @@ def _time_ms(torch, fn, args, reps=5):
     return statistics.median(ts)
 
 
-def _seam_graph(torch, tmp, size):
-    """Seam graph of the second of two overlapping ``size``-px views
-    against the first, warped with their true spherical geometry at the
-    block shape of a loop of such views (what render/graphcut._cut_step
-    hands the solver)."""
+def _views_state(torch, tmp, size, n):
+    """The ComposeState of ``n`` overlapping ``size``-px views (30-degree
+    yaw steps) warped with their true spherical geometry, at the block
+    shape of a loop of such views."""
     import cv2
     from simplepanorama_tpu_torch.fixtures import fkh360_views
     from simplepanorama_tpu_torch.render import compose
-    paths, yaws, f = fkh360_views(2, size,
-                                  out_dir=os.path.join(tmp, f"pair{size}"))
+    paths, yaws, f = fkh360_views(
+        n, size, out_dir=os.path.join(tmp, f"views{n}_{size}"))
     imgs = [cv2.imread(p) for p in paths]
     Ks, Rs = [], []
     for im, yaw in zip(imgs, yaws):
@@ -217,15 +228,27 @@ def _seam_graph(torch, tmp, size):
         a = np.radians(yaw)
         Rs.append(np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
                             [-np.sin(a), 0, np.cos(a)]]))
-    st = compose.warp_all("spherical", f, imgs, Rs, Ks, [1.0, 1.0],
-                          device="cuda")
-    return _first_cut_graph(torch, st, (0, 1))
+    return compose.warp_all("spherical", f, imgs, Rs, Ks, [1.0] * n,
+                            device="cuda")
+
+
+def _seam_graph(torch, tmp, size):
+    """Seam graph of the second of two overlapping ``size``-px views
+    against the first, at the block shape of a loop of such views (what
+    render/graphcut._cut_step hands the solver)."""
+    return _first_cut_graph(torch, _views_state(torch, tmp, size, 2), (0, 1))
 
 
 def _first_cut_graph(torch, st, seq):
     """The seam graph of the first cut that render/graphcut.graph_cut_state
     makes on the ComposeState ``st`` in the order ``seq``: block seq[1]
     against block seq[0] pasted on the canvas, as contiguous tensors."""
+    return _cut_graph(torch, st, seq[:1], seq[1])
+
+
+def _cut_graph(torch, st, pasted, b):
+    """The seam graph of block ``b`` of the ComposeState ``st`` against
+    the blocks ``pasted`` pasted on the canvas, as contiguous tensors."""
     from simplepanorama_tpu_torch.render import graphcut
     gray = graphcut._gray_batch(st.imgs)
     N, Hb, Wb = st.masks.shape
@@ -234,8 +257,8 @@ def _first_cut_graph(torch, st, seq):
     canvas = torch.zeros((H + Hb, W + Wb), device=dev)
     scene = torch.zeros((H + Hb, W + Wb), dtype=torch.bool, device=dev)
     offs = st.offs.tolist()
-    a, b = seq[0], seq[1]
-    graphcut._paste_first(canvas, scene, gray[a], st.masks[a], offs[a])
+    for a in pasted:
+        graphcut._paste_first(canvas, scene, gray[a], st.masks[a], offs[a])
     y, x = offs[b]
     return [t.contiguous() for t in graphcut._build_cut_graph(
         canvas[y:y + Hb, x:x + Wb], gray[b],
@@ -281,7 +304,8 @@ def _solve_pair(torch, maxflow, name, graph, kernel, plain, reps,
     tensors. Checks cut values within 1e-3 relative (float64 recount)
     and sides equal on >= 99.9% of nodes; prints one line; returns
     (|cut difference|, kernel ms, plain ms, the plain version's count of
-    the work these inputs needed). The plain time is the median of
+    the work these inputs needed, the plain version's side). The plain
+    time is the median of
     ``plain_reps`` repeats, or with 0 its checking run (which also
     counts that work)."""
     side_k = kernel(*graph)
@@ -313,7 +337,7 @@ def _solve_pair(torch, maxflow, name, graph, kernel, plain, reps,
         raise RuntimeError(f"{kernel.__name__} disagrees with its plain "
                            f"version on {name}: cut {vk} vs {vr}, "
                            f"agreement {agree}")
-    return abs(vk - vr), ms_k, ms_r, plain_stats
+    return abs(vk - vr), ms_k, ms_r, plain_stats, side_r
 
 
 def _kernel_pair(torch, maxflow, name, graph, reps, card, phase, **extra):
@@ -338,6 +362,187 @@ def _kernel_pair(torch, maxflow, name, graph, reps, card, phase, **extra):
     if abs(v1 - v2) > 1e-3 * max(1.0, abs(v1)):
         raise RuntimeError(f"kernels 1 and 2 disagree on {name}: {v1} vs "
                            f"{v2}")
+    return out
+
+
+def _crop_rule(maxflow, H, W, box):
+    """The kernel and the shape grid_mincut_auto's crop rule gives an
+    (H, W) grid with node box ``box``: the whole grid at or under
+    WHOLE_GRID_MAX_CELLS to kernel 1; over it, a box of at most 0.9 of the
+    grid to kernel 1 at or under the limit, else to kernel 2; a larger
+    box or no nodes, the whole grid to kernel 2."""
+    limit = maxflow.WHOLE_GRID_MAX_CELLS
+    if H * W <= limit:
+        return "kernel1", (H, W)
+    if box is not None:
+        r0, r1, c0, c1 = box
+        cells = (r1 - r0) * (c1 - c0)
+        if cells <= 0.9 * H * W:
+            return ("kernel1" if cells <= limit else "kernel2"), \
+                (r1 - r0, c1 - c0)
+    return "kernel2", (H, W)
+
+
+def _route(maxflow, launched):
+    """The route of one min-cut solve from the launches it added to
+    kernels 1 and 2: kernel 1 with its tiles resident, kernel 1's tiled
+    route, or kernel 2."""
+    if launched == (1, 0):
+        return ("kernel1_resident" if maxflow.grid_mincut.last_stats[
+            "resident"] else "kernel1_tiled_route")
+    return "kernel2" if launched == (0, 1) else f"launches {launched}"
+
+
+def _check_route(name, maxflow, H, W, box, launched):
+    """Fail unless one solve launched the one kernel the crop rule gives
+    its box."""
+    want = _crop_rule(maxflow, H, W, box)[0]
+    if launched != ((1, 0) if want == "kernel1" else (0, 1)):
+        raise RuntimeError(f"{name}: box {box} of a {H}x{W} grid launched "
+                           f"kernels 1, 2 {launched} times, the crop rule "
+                           f"gives {want}")
+
+
+def _auto_pair(torch, maxflow, name, graph, turns, card, plain=False,
+               plain_side=None):
+    """grid_mincut_auto, the seam dispatch, on one seam graph: its node
+    box, the kernel it launched (checked against the crop rule) and its
+    cut, held against kernel 2 on the uncropped grid (grid_mincut_tiled),
+    or with ``plain`` against kernel 2's plain version, and against
+    ``plain_side`` where given (a plain version's side of the same graph,
+    computed before), cut values within 1e-3 relative (float64 recount)
+    and sides equal on >= 99.9% of nodes; then the dispatch and kernel 2
+    timed in ``turns`` alternating turns (CUDA events, one solve each).
+    Prints one line; returns it."""
+    H, W = graph[0].shape
+    box = maxflow._node_bbox(graph[3], H, W)
+    before = _launches(maxflow)
+    side_a = maxflow.grid_mincut_auto(*graph)
+    after = _launches(maxflow)
+    launched = (after[0] - before[0], after[1] - before[1])
+    route = _route(maxflow, launched)
+    ref = maxflow.grid_mincut_tiled_ref if plain else \
+        maxflow.grid_mincut_tiled
+    side_r = ref(*graph)
+    host = [t.cpu().numpy() for t in graph]
+    node = host[3]
+    sa, sr = side_a.cpu().numpy(), side_r.cpu().numpy()
+    va = maxflow.cut_value(*host, sa)
+    vr = maxflow.cut_value(*host, sr)
+    agree = float((sa == sr)[node].mean()) if node.any() else 1.0
+    checks = [(ref.__name__ + ("" if plain else ", uncropped"), va, vr,
+               agree)]
+    if plain_side is not None:
+        sp = plain_side.cpu().numpy()
+        checks.append(("grid_mincut_tiled_ref, uncropped", va,
+                       maxflow.cut_value(*host, sp),
+                       float((sa == sp)[node].mean()) if node.any()
+                       else 1.0))
+    fns = (("auto", maxflow.grid_mincut_auto),
+           ("uncropped_kernel2", maxflow.grid_mincut_tiled))
+    ms = {k: [] for k, _ in fns}
+    for turn in range(turns):
+        for k, fn in (fns if turn % 2 == 0 else fns[::-1]):
+            ms[k].append(_time_ms(torch, fn, graph, 1))
+    cells = None if box is None else (box[1] - box[0]) * (box[3] - box[2])
+    out = dict(input=name, shape=[H, W], cells=H * W,
+               nodes=int(node.sum()), box=box, box_cells=cells,
+               box_share=None if box is None else cells / (H * W),
+               route=route, launches=list(launched), cut_auto=va,
+               checks=[{"vs": c[0], "cut_reference": c[2],
+                        "side_agreement": c[3]} for c in checks],
+               auto_ms=statistics.median(ms["auto"]),
+               uncropped_kernel2_ms=statistics.median(
+                   ms["uncropped_kernel2"]), turns_ms=ms)
+    _line("kernel2", **out, device=card)
+    _check_route(name, maxflow, H, W, box, launched)
+    for vs, va, vr, agree in checks:
+        if not (abs(va - vr) <= 1e-3 * max(1.0, abs(vr))
+                and agree >= 0.999):
+            raise RuntimeError(f"grid_mincut_auto disagrees with {vs} on "
+                               f"{name}: cut {va} vs {vr}, agreement "
+                               f"{agree}")
+    return out
+
+
+@contextlib.contextmanager
+def _cut_log(torch, maxflow):
+    """Log every call of grid_mincut_auto that render/graphcut makes
+    inside the block: a copy of its four planes, the launches it added to
+    kernels 1 and 2, the route, the launched kernel's counters and CUDA
+    events around it. Yields the list; ``_cut_table`` and ``_check_crops``
+    read it after the block."""
+    from simplepanorama_tpu_torch.render import graphcut
+    auto = graphcut.grid_mincut_auto
+    cuts = []
+
+    def logged(cap_h, cap_v, excess0, node, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        before = _launches(maxflow)
+        e0.record()
+        side = auto(cap_h, cap_v, excess0, node, **kw)
+        e1.record()
+        after = _launches(maxflow)
+        launched = (after[0] - before[0], after[1] - before[1])
+        fn = maxflow.grid_mincut if launched[0] else \
+            maxflow.grid_mincut_tiled
+        cuts.append(([t.clone() for t in (cap_h, cap_v, excess0, node)],
+                     launched, _route(maxflow, launched),
+                     dict(fn.last_stats), e0, e1))
+        return side
+    graphcut.grid_mincut_auto = logged
+    try:
+        yield cuts
+    finally:
+        graphcut.grid_mincut_auto = auto
+
+
+def _cut_table(torch, maxflow, name, cuts):
+    """Each logged cut's node box, box cells, route, solver counters and
+    ms; fails unless each launched the one kernel the crop rule gives its
+    box."""
+    torch.cuda.synchronize()
+    table = []
+    for graph, launched, route, stats, e0, e1 in cuts:
+        node = graph[3]
+        H, W = node.shape
+        box = maxflow._node_bbox(node, H, W)
+        _check_route(name, maxflow, H, W, box, launched)
+        table.append({"box": box, "solved_shape": list(_crop_rule(
+            maxflow, H, W, box)[1]), "nodes": int(node.sum()),
+            "route": route, "solver_stats": stats,
+            "ms": e0.elapsed_time(e1)})
+    return table
+
+
+def _check_crops(torch, maxflow, name, cuts, card):
+    """Kernel 1 against its plain version (grid_mincut_ref) on the cropped
+    planes that grid_mincut_auto handed it on a path: the first logged cut
+    of each of kernel 1's routes (its tiles resident, or kernel 2's tiled
+    route), through ``_solve_pair`` (cut values within 1e-3 relative,
+    sides >= 99.9% of nodes). Returns {route: (input name, |cut
+    difference|, kernel ms, plain ms, bound)}."""
+    out = {}
+    for i, (graph, launched, route, stats, e0, e1) in enumerate(cuts):
+        if launched != (1, 0) or route in out:
+            continue
+        H, W = graph[3].shape
+        box = maxflow._node_bbox(graph[3], H, W)
+        if H * W <= maxflow.WHOLE_GRID_MAX_CELLS or box is None:
+            box = (0, H, 0, W)     # solved whole, as the crop rule says
+        r0, r1, c0, c1 = box
+        crop = [t[r0:r1, c0:c1].contiguous() for t in graph]
+        label = f"{name}_cut{i}_{r1 - r0}x{c1 - c0}"
+        err, ms_k, ms_r, plain_stats, _ = _solve_pair(
+            torch, maxflow, label, crop, maxflow.grid_mincut,
+            maxflow.grid_mincut_ref, 3, 0, card, name)
+        if maxflow.grid_mincut.last_stats["resident"] != \
+                (route == "kernel1_resident"):
+            raise RuntimeError(f"{label}: kernel 1 took another route "
+                               f"than on the path ({route})")
+        out[route] = (label, err, ms_k, ms_r,
+                      _mincut_bound(crop[3], plain_stats))
     return out
 
 
@@ -794,7 +999,7 @@ def _slice5(torch, paths, f_true, tmp, card):
     # re-composite, at the sten-fixed block shape the path gave it
     graph = _first_cut_graph(torch, pano.stitch_params.state,
                              [n for n, _ in pano.stitch_params.res.order])
-    err5, ms5, plain_ms5, _ = _solve_pair(
+    err5, ms5, plain_ms5, _, _ = _solve_pair(
         torch, maxflow, f"sten{cut_blocks[1]}x{cut_blocks[2]}", graph,
         maxflow.grid_mincut, maxflow.grid_mincut_ref, 3, 0, card, "kernel")
     resident5 = maxflow.grid_mincut.last_stats["resident"]
@@ -2101,12 +2306,14 @@ def main():
         for name, graph, plain_reps in (
                 ("grid48x160", grid, 5),
                 ("seam700", _seam_graph(torch, tmp, 700), 0)):
-            err, ms_k, ms_r, stats = _solve_pair(
+            err, ms_k, ms_r, stats, _ = _solve_pair(
                 torch, maxflow, name, graph, maxflow.grid_mincut,
                 maxflow.grid_mincut_ref, 5, plain_reps, card, "kernel")
             errs1.append(err)
-        # the seam graph's times and bound are reported
+        # the seam graph's times and bound, beside those of slice 2's
+        # crops (added there)
         timing1 = (ms_k, ms_r, _mincut_bound(graph[3], stats))
+        timings1 = {"seam700_640x640": timing1}
         # kernel 2 on the seam700 block, where kernel 1 keeps its tiles
         # resident: two different solvers on one input
         pair = _kernel_pair(torch, maxflow, "seam700", graph, 3, card,
@@ -2125,7 +2332,7 @@ def main():
         # checking run (its CUDA-event time), not on repeats
         for name, graph, tile_rows, plain_reps in (
                 ("grid48x160", grid, 16, 5), ("seam1400", seam, 512, 0)):
-            err, ms_k, ms_r, stats = _solve_pair(
+            err, ms_k, ms_r, stats, plain_side = _solve_pair(
                 torch, maxflow, name, graph, maxflow.grid_mincut_tiled,
                 maxflow.grid_mincut_tiled_ref, 3, plain_reps, card,
                 "kernel2", tile_rows=tile_rows)
@@ -2134,6 +2341,34 @@ def main():
         # kernel 1 at seam1400 takes kernel 2's tiled route (its tiles do
         # not fit), so this line is the crossover, not a second solver
         _kernel_pair(torch, maxflow, "seam1400", seam, 3, card, "kernel2")
+        # the seam dispatch at slice 2's block shape: a one-sided overlap
+        # band, solved on its node box, against the uncropped kernel 2 in
+        # turns; then the middle of three views against both neighbours,
+        # a box over 0.9 of the grid, so grid_mincut_auto sends it whole
+        # to kernel 2 (its first solve is a path of kernel 2: counts set
+        # to 0 before it and read after)
+        crop = _auto_pair(torch, maxflow, "seam1400_crop", seam, 4, card,
+                          plain_side=plain_side)
+        if crop["box_share"] is None or crop["box_share"] > 0.9:
+            raise RuntimeError(f"seam1400_crop: node box {crop['box']} is "
+                               "not at most 0.9 of the grid")
+        closing = _cut_graph(torch, _views_state(torch, tmp, 1400, 3),
+                             (0, 2), 1)
+        if closing[0].numel() <= maxflow.WHOLE_GRID_MAX_CELLS:
+            raise RuntimeError(f"seam1400_closing block "
+                               f"{tuple(closing[0].shape)} is not over 1.2M "
+                               "cells")
+        _reset_launches(maxflow)
+        closing_out = _auto_pair(torch, maxflow, "seam1400_closing",
+                                 closing, 2, card, plain=True)
+        launches_closing = closing_out["launches"]
+        if (closing_out["box_share"] or 1.0) <= 0.9 or \
+                launches_closing != [0, 1]:
+            raise RuntimeError(f"seam1400_closing: box {closing_out['box']}"
+                               f", launches {launches_closing}: wanted a "
+                               "box over 0.9 of the grid and one kernel-2 "
+                               "launch")
+        del seam, closing, plain_side
 
         # ---- the crossover of kernels 1 and 2 between the two seam
         # blocks, and the cost of one BFS level ----
@@ -2228,13 +2463,16 @@ def main():
         _reset_launches(maxflow)
         ba_kernel.assemble_streams.launches = 0
         t0 = time.perf_counter()
-        with _count_lm(tstitch) as lm2:
+        with _count_lm(tstitch) as lm2, _cut_log(torch, maxflow) as log2:
             pano = Panorama(paths, device="cuda").stitch(
                 Config(cut=True, init_size=1400, gain_compensation=True))
-        preview = pano.get_preview()
+            preview = pano.get_preview()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches2 = _launches(maxflow)
+        # each cut's node box, route and ms, each checked against the
+        # crop rule
+        cuts2 = _cut_table(torch, maxflow, "slice2", log2)
         launches2_k3 = ba_kernel.assemble_streams.launches
         # get_panorama joins the prefetch that stitch() started (the
         # full-res decode and upload ran under get_preview) and renders
@@ -2291,9 +2529,8 @@ def main():
               full_wall_s=full_wall, prefetch=prefetch2,
               full_turns_s=full_turns,
               prefetched_equals_synchronous_bits=all(same_bits),
-              stages_s=stages2,
-              max_memory_allocated=peak,
-              solver_stats=maxflow.grid_mincut_tiled.last_stats, **lm2,
+              stages_s=stages2, cuts=cuts2,
+              max_memory_allocated=peak, **lm2,
               assemble_streams_launches=launches2_k3, device=card)
         if tuple(pano.connected) != (12, 12):
             raise RuntimeError(f"slice2 connected {pano.connected}")
@@ -2302,9 +2539,10 @@ def main():
             raise RuntimeError(f"slice2 focals {focals} vs true {f_true}")
         if blocks[1] * blocks[2] <= maxflow.WHOLE_GRID_MAX_CELLS:
             raise RuntimeError(f"slice2 blocks {blocks} not over 1.2M cells")
-        if launches2[1] < 11 or launches2[0] != 0:
-            raise RuntimeError(f"slice2 launches {launches2}: wanted >= 11 "
-                               "of kernel 2 and none of kernel 1")
+        if launches2[0] + launches2[1] != 11 or len(cuts2) != 11:
+            raise RuntimeError(f"slice2 launches {launches2} in "
+                               f"{len(cuts2)} cuts: wanted 11 cuts, one "
+                               "launch of kernel 1 or 2 each")
         if not (np.all(np.isfinite(gains)) and np.all(gains > 0)):
             raise RuntimeError(f"slice2 gains {gains}")
         if not np.isfinite(preview).all() or cov <= 0.9:
@@ -2319,6 +2557,19 @@ def main():
             raise RuntimeError(f"slice2: the prefetched full-res render "
                                f"({prefetch2}) differs from the "
                                f"synchronous one: {same_bits}")
+        # kernel 1 against its plain version on the crops it was handed
+        # above (after the launches were read): the first cut of each of
+        # its routes; the resident crop's times and bound are kernel 1's
+        # in the kernels line
+        crops2 = _check_crops(torch, maxflow, "slice2", log2, card)
+        del log2
+        if "kernel1_resident" not in crops2:
+            raise RuntimeError("slice2: no cut kept kernel 1's tiles "
+                               f"resident ({[c['route'] for c in cuts2]})")
+        for label, err, ms_k, ms_r, bound in crops2.values():
+            errs1.append(err)
+            timings1[label] = (ms_k, ms_r, bound)
+        timing1 = timings1[crops2["kernel1_resident"][0]]
         # ---- the same get_panorama() with the prefetch's upload out of
         # device memory: the chunked route on the same card ----
         _prefetch_oom_phase(torch, card, pano)
@@ -2562,11 +2813,13 @@ def main():
          "route": "cuda",
          "source": sources["grid_mincut"],
          "replaces": "simplepanorama_tpu/ops/maxflow.py:366",
-         "launches": launches1[0] + launches_opt[0],
-         # its launches on each path that runs it (slice 5: the cut=True
-         # re-composite of the little planet; options: the cut=True
-         # cylindrical stitch)
+         "launches": launches1[0] + launches2[0] + launches_opt[0],
+         # its launches on each path that runs it (slice 2: the cuts
+         # whose node box is at most 0.9 of the block and 1.2M cells;
+         # slice 5: the cut=True re-composite of the little planet;
+         # options: the cut=True cylindrical stitch)
          "launches_by_path": {"slice": launches1[0], "slice2": launches2[0],
+                              "seam1400_closing": launches_closing[0],
                               "slice5": launches5[0],
                               "options": launches_opt[0],
                               "hostcut": launches_hostcut[0],
@@ -2575,17 +2828,27 @@ def main():
                               "fresh": launches_fresh[0]},
          # largest |cut value (kernel) - cut value (plain)| over its inputs
          "max_abs_err": max(errs1),
+         # times and bound at slice 2's first crop that kept its tiles
+         # resident, as grid_mincut_auto hands it over; every input's
+         # below
          "ms": timing1[0],
          "plain_ms": timing1[1],
          "bound_ms": timing1[2][0],
          "bound_by": timing1[2][1],
-         "library_ms": None},
+         "library_ms": None,
+         "by_input": {k: {"ms": t[0], "plain_ms": t[1],
+                          "bound_ms": t[2][0], "bound_by": t[2][1]}
+                      for k, t in timings1.items()}},
         {"name": "grid_mincut_tiled",
          "route": "cuda",
          "source": sources["grid_mincut_tiled"],
          "replaces": "simplepanorama_tpu/ops/maxflow.py:666",
-         "launches": launches2[1],
+         # slice 2's cuts whose node box is over 0.9 of the block or
+         # over 1.2M cells, and the closing cut's solve through
+         # grid_mincut_auto
+         "launches": launches2[1] + launches_closing[1],
          "launches_by_path": {"slice": launches1[1], "slice2": launches2[1],
+                              "seam1400_closing": launches_closing[1],
                               "slice5": launches5[1],
                               "options": launches_opt[1],
                               "hostcut": launches_hostcut[1],

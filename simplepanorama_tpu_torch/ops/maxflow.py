@@ -26,7 +26,8 @@ holds CPU models of their schedules to it).
 ``grid_mincut`` and ``grid_mincut_tiled`` dispatch on where their tensors
 live: CPU tensors take the plain version; CUDA tensors launch the kernel
 (built with nvcc at first use) or raise. There is no fallback from one to
-the other. ``grid_mincut_auto`` picks the solver by grid size.
+the other. ``grid_mincut_auto`` picks the solver by grid size, after
+cropping a grid over WHOLE_GRID_MAX_CELLS to its node box.
 """
 
 from __future__ import annotations
@@ -592,14 +593,59 @@ def dist_to_sink(cap_h: torch.Tensor, cap_v: torch.Tensor,
 WHOLE_GRID_MAX_CELLS = 1_200_000
 
 
+def _node_bbox(node: torch.Tensor, H: int, W: int, row_pad: int = 8,
+               col_pad: int = 128):
+    """Aligned bounding box (r0, r1, c0, c1) of the node set, or None if
+    it is empty (the JAX package's _node_bbox, maxflow.py:723-740): the
+    nodes' rows and columns widened by one cell, rows aligned to
+    ``row_pad``, columns to ``col_pad``. Cells outside it are not nodes,
+    so a cut solved on the crop is the cut of the whole grid. ``node`` is
+    the (H, W) bool mask on any device; the host reads its H row flags
+    and W column flags, not the mask."""
+    flags = torch.cat([node.any(dim=1), node.any(dim=0)]).cpu().numpy()
+    r, c = flags[:H], flags[H:]
+    if not r.any():
+        return None
+    r0 = int(np.argmax(r))
+    r1 = H - int(np.argmax(r[::-1]))
+    c0 = int(np.argmax(c))
+    c1 = W - int(np.argmax(c[::-1]))
+    r0 = max(0, r0 - 1) // row_pad * row_pad
+    c0 = max(0, c0 - 1) // col_pad * col_pad
+    r1 = min(H, (r1 + row_pad) // row_pad * row_pad)
+    c1 = min(W, (c1 + col_pad) // col_pad * col_pad)
+    return r0, r1, c0, c1
+
+
 def grid_mincut_auto(cap_h, cap_v, excess0, node, **kw):
-    """The solver the seam graph cut calls, dispatched as the traced
-    branch of the JAX package's grid_mincut_auto (maxflow.py:753, :777):
-    on H*W alone, with no bounding-box crop. At or under
-    WHOLE_GRID_MAX_CELLS the whole-grid solver (kernel 1 on the card,
-    grid_mincut_ref on the CPU); over it the tiled one (kernel 2,
-    grid_mincut_tiled_ref)."""
+    """The solver the seam graph cut calls, dispatched as the JAX
+    package's grid_mincut_auto dispatches a concrete grid
+    (maxflow.py:743-777). At or under WHOLE_GRID_MAX_CELLS the whole-grid
+    solver (kernel 1 on the card, grid_mincut_ref on the CPU). Over it,
+    the grid is cropped to its node box (_node_bbox) when the box holds
+    at most 0.9 of the cells: seam graphs are overlap bands inside the
+    padded block, so the crop often fits the whole-grid solver. The crop
+    goes to the whole-grid solver at or under WHOLE_GRID_MAX_CELLS and to
+    the tiled one (kernel 2, grid_mincut_tiled_ref) over it, and its side
+    is pasted into an all-False (H, W) side. Without nodes, or with a
+    box over 0.9 of the grid, the whole grid goes to the tiled solver.
+    Unlike the JAX package, the choice is on cells alone (no row limit:
+    that one served the TPU compiler). ``kw`` passes through; a default
+    ``sweep_iters`` follows the shape solved."""
     H, W = cap_h.shape
     if H * W <= WHOLE_GRID_MAX_CELLS:
         return grid_mincut(cap_h, cap_v, excess0, node, **kw)
+    box = _node_bbox(node, H, W)
+    if box is not None:
+        r0, r1, c0, c1 = box
+        cells = (r1 - r0) * (c1 - c0)
+        if cells <= 0.9 * H * W:
+            crop = [t[r0:r1, c0:c1].contiguous()
+                    for t in (cap_h, cap_v, excess0, node)]
+            solve = (grid_mincut if cells <= WHOLE_GRID_MAX_CELLS
+                     else grid_mincut_tiled)
+            side = torch.zeros((H, W), dtype=torch.bool,
+                               device=cap_h.device)
+            side[r0:r1, c0:c1] = solve(*crop, **kw)
+            return side
     return grid_mincut_tiled(cap_h, cap_v, excess0, node, **kw)

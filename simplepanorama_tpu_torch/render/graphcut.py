@@ -19,8 +19,9 @@ Two incremental loops, as in the JAX package:
   * ``graph_cut_state``, the device chain over the packed blocks: the
     canvas and scene mask stay on the device and are updated in place,
     image after image; every cut goes to ops.maxflow.grid_mincut_auto
-    (kernels 1 and 2 on the card). stitcher.set_config takes it on the
-    card.
+    (kernels 1 and 2 on the card), which solves a block over 1.2M cells
+    on its node box, the overlap band. stitcher.set_config takes it on
+    the card.
   * ``graph_cut``, the per-image host loop over the per-image crops, which
     set_config takes on the CPU; its ``_solve_cut`` picks the solver: the
     native Dinic (native.py) for CPU tensors (the plain solver where it

@@ -206,6 +206,55 @@ def test_kernel1_takes_tiled_route_when_tiles_do_not_fit(cuda):
     assert abs(v1 - v2) <= 1e-3 * max(1.0, abs(v2)), (v1, v2)
 
 
+@pytest.mark.parametrize("lo,hi,box,route", [
+    # box 1272x512: kernel 1 with its tiles resident
+    ((300, 340), (740, 760), (0, 1272, 256, 768), "kernel1"),
+    # box 1272x1024 (1.30M cells, 0.80 of the grid): kernel 2 on the crop
+    ((140, 160), (1040, 1060), (0, 1272, 128, 1152), "kernel2"),
+    # box the whole grid: kernel 2 on the full grid
+    ((10, 20), (1260, 1270), (0, 1272, 0, 1280), "kernel2"),
+])
+def test_auto_crops_large_seam_grid(cuda, lo, hi, box, route):
+    """A 1272x1280 grid (slice 2's block, over WHOLE_GRID_MAX_CELLS) whose
+    nodes are a ragged vertical band, t-links of 5000 at each row's ends:
+    grid_mincut_auto crops it to its node box (the same box on the card
+    as on the CPU) and launches the kernel of the crop rule once, none of
+    the other; against kernel 2 on the full grid, cut values within 1e-3
+    relative and sides equal on >= 99.9% of nodes."""
+    H, W = 1272, 1280
+    rng = np.random.default_rng(lo[0])
+    wh = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    wv = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    a = rng.integers(*lo, size=H)[:, None]
+    b = rng.integers(*hi, size=H)[:, None]
+    cols = np.arange(W)[None]
+    node = (cols >= a) & (cols < b)
+    exc = (5000.0 * (cols == a) - 5000.0 * (cols == b - 1)).astype(
+        np.float32)
+    host = (wh, wv, exc, node)
+    t = [torch.from_numpy(x).to(cuda) for x in host]
+    assert maxflow._node_bbox(t[3], H, W) == box
+    assert maxflow._node_bbox(torch.from_numpy(node), H, W) == box
+    before = (maxflow.grid_mincut.launches,
+              maxflow.grid_mincut_tiled.launches)
+    side = maxflow.grid_mincut_auto(*t)
+    launched = (maxflow.grid_mincut.launches - before[0],
+                maxflow.grid_mincut_tiled.launches - before[1])
+    assert launched == ((1, 0) if route == "kernel1" else (0, 1))
+    if route == "kernel1":
+        assert maxflow.grid_mincut.last_stats["resident"] == 1
+    full = maxflow.grid_mincut_tiled(*t)
+    torch.cuda.synchronize()
+    v_c = maxflow.cut_value(*host, side)
+    v_f = maxflow.cut_value(*host, full)
+    assert abs(v_c - v_f) <= 1e-3 * max(1.0, abs(v_f)), (v_c, v_f)
+    assert (side.cpu().numpy() == full.cpu().numpy())[node].mean() >= 0.999
+    r0, r1, c0, c1 = box
+    outside = torch.ones((H, W), dtype=torch.bool, device=cuda)
+    outside[r0:r1, c0:c1] = False
+    assert not side[outside].any()
+
+
 def _ncc(a, b):
     a = a.astype(np.float64).ravel() - a.mean()
     b = b.astype(np.float64).ravel() - b.mean()

@@ -65,11 +65,12 @@ def test_tiled_ref_matches_whole_grid(seed):
 
 @pytest.mark.parametrize("limit,want", [(24 * 32, "whole"),
                                         (24 * 32 - 1, "tiled")])
-def test_auto_dispatches_on_cells_without_crop(monkeypatch, limit, want):
+def test_auto_dispatches_on_cells_and_node_box(monkeypatch, limit, want):
     """grid_mincut_auto takes the whole-grid solver at or under
-    WHOLE_GRID_MAX_CELLS and the tiled one over it, on H*W alone: the
-    chosen solver gets the full grid, even where the nodes fill only a
-    small box of it (no bounding-box crop)."""
+    WHOLE_GRID_MAX_CELLS; over it the crop rule applies, and here the
+    nodes fill 20 of 32 columns but the node box, its columns aligned to
+    128, is the whole grid (over 0.9 of it), so the tiled solver gets the
+    full grid. The crop itself: tests/test_torch_node_bbox.py."""
     wh, wv, exc, node = _grid(24, 32, 3)
     node[:, 20:] = False                 # nodes fill 20 of 32 columns
     exc[:, 19] = -5000.0
