@@ -1,0 +1,10 @@
+"""Seams: the stage ``graph_cut`` (inside ``compositing``), seconds per
+stitch request."""
+
+
+def read(ctx):
+    n = ctx.counts.get("stitch")
+    if not n:
+        return None
+    s = ctx.stage_s
+    return (s["graph_cut"]) / n

@@ -1,0 +1,6 @@
+"""The card's peak of allocated memory over the window
+(``torch.cuda.max_memory_allocated`` after a reset at its start), GB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 1e9 if ctx.peak_bytes else None
