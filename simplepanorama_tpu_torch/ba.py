@@ -49,6 +49,7 @@ from simplepanorama_tpu_torch.ops import ba_kernel
 from simplepanorama_tpu_torch.utils.device import (CAPTURE_LOCK,
                                                    cusolver_linalg)
 from simplepanorama_tpu_torch.utils.nvcc import count_launches
+from simplepanorama_tpu_torch.utils.timing import span
 
 _AUG_FOCAL = 1e-3
 _AUG_ANG = float(np.pi / 16.0)
@@ -656,8 +657,9 @@ def lm_run_eager(cams: CamState, data: BAData, cam_active, lambda0,
     ones after the end included, host reads). With a process ``group``,
     ``data`` and ``cams.b`` are this rank's share of the matches and every
     rank runs the same trials (parallel.dist_ba)."""
-    pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws, group)
-    st = lm_init(cams, pb, lambda0, fast)
+    with span("ba.load"):
+        pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws, group)
+        st = lm_init(cams, pb, lambda0, fast)
     on_card = cams.focal.device.type == "cuda"
     reads = 0
     while True:
@@ -665,7 +667,9 @@ def lm_run_eager(cams: CamState, data: BAData, cam_active, lambda0,
             for _ in range(read_every):
                 st = lm_trial(st, pb, fast)
         reads += 1
-        if not bool(_live(st, pb.max_iter)):
+        with span("ba.flag_read"):
+            live = bool(_live(st, pb.max_iter))
+        if not live:
             return _result(st), reads * read_every, reads
 
 
@@ -763,6 +767,7 @@ class LMProgram:
             dst.copy_(src)
         self.live.copy_(_live(st, self.pb.max_iter))
 
+    @span("ba.load")
     def _load(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
         pb, st = self.pb, self.st
         for dst, src in zip(st.cams, cams):
@@ -781,6 +786,7 @@ class LMProgram:
         for t in (st.it, st.strikes, st.n_acc):
             t.zero_()
 
+    @span("ba.capture")
     def _capture(self):
         """The warm-up trial, then the trial captured on this program's own
         stream. One capture at a time in the process (CAPTURE_LOCK), in
@@ -827,7 +833,9 @@ class LMProgram:
                            self.read_every * self.launches_per_trial)
             executed += self.read_every
             reads += 1
-            if not bool(self.live):
+            with span("ba.flag_read"):
+                live = bool(self.live)
+            if not live:
                 break
         st = LMState(*(t.clone() if torch.is_tensor(t) else
                        CamState(*(c.clone() for c in t)) for t in self.st))

@@ -31,6 +31,7 @@ from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.io import PendingLoad
 from simplepanorama_tpu_torch.ops.sift import extract_sift_batch
 from simplepanorama_tpu_torch.utils.device import checked_device, empty_cache
+from simplepanorama_tpu_torch.utils.timing import span
 
 # (Hp, Wp, K, nOctaveLayers) -> the chunk size a run fell back to after
 # running out of device memory at that padded shape
@@ -256,7 +257,8 @@ def _extract_stream(pending: PendingLoad, cfg: Config, cancelled, device):
             ids = range(uploaded, end)
             blk = np.zeros((len(ids), Hp, Wp, 3), np.uint8)
             for k, i in enumerate(ids):
-                im = pending.get(i)
+                with span("features.decode_wait"):
+                    im = pending.get(i)
                 if tuple(im.shape[:2]) != tuple(pending.dims[i]):
                     raise RuntimeError(
                         f"{pending.todo[i]} decoded to {im.shape[:2]}, its "

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from simplepanorama_tpu_torch.utils.nvcc import count_launches
+from simplepanorama_tpu_torch.utils.timing import global_timer
 
 _INF = 1e18
 
@@ -497,6 +498,15 @@ def _launch(kernel, cap_h, cap_v, excess0, node, max_outer, inner_iters,
     return side, d, dict(zip(_STATS, stats))
 
 
+def _count_solve(stats: dict) -> None:
+    """Add a card solve's outer rounds and device nanoseconds of pushes
+    and BFSs to the counters ``mincut.outer``, ``mincut.push_ns`` and
+    ``mincut.bfs_ns``."""
+    timer = global_timer()
+    for k in ("outer", "push_ns", "bfs_ns"):
+        timer.add("mincut." + k, stats[k])
+
+
 def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
                 excess0: torch.Tensor, node: torch.Tensor,
                 max_outer: int = 400, inner_iters: int = 30,
@@ -516,7 +526,8 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
     when the grid's tiles stayed in shared memory, 0 when it took the
     tiled route, the device nanoseconds of the push blocks and of the
     BFSs, read from the device clock at grid barriers, and the BFS levels
-    run, summed over tiles and rounds)."""
+    run, summed over tiles and rounds); every card solve adds its outer
+    rounds and nanoseconds to the timer's counters (``_count_solve``)."""
     _check(cap_h, cap_v, excess0, node)
     H, W = cap_h.shape
     if sweep_iters <= 0:
@@ -528,6 +539,7 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
                              max_outer, inner_iters, sweep_iters)
     count_launches(grid_mincut)
     grid_mincut.last_stats = stats
+    _count_solve(stats)
     return side
 
 
@@ -558,6 +570,7 @@ def grid_mincut_tiled(cap_h: torch.Tensor, cap_v: torch.Tensor,
                              node, max_outer, inner_iters, sweep_iters)
     count_launches(grid_mincut_tiled)
     grid_mincut_tiled.last_stats = stats
+    _count_solve(stats)
     return side
 
 

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from simplepanorama_tpu_torch.geometry.canvas import get_pan_dimension
 from simplepanorama_tpu_torch.ops.maxflow import grid_mincut, grid_mincut_auto
+from simplepanorama_tpu_torch.utils.timing import span
 
 _SEED_W = 5000.0
 _EPS = 1e-6
@@ -117,7 +118,8 @@ def _solve_cut(wh, wv, excess, obj, mask2):
             _warn_native_unavailable(e)
             side = grid_mincut(wh, wv, excess, obj)
     else:
-        side = grid_mincut_auto(wh, wv, excess, obj)
+        with span("seams.solve"):
+            side = grid_mincut_auto(wh, wv, excess, obj)
     return torch.where(obj, side, mask2 > 0)
 
 
@@ -206,7 +208,8 @@ def _cut_step(canvas_g, scene, gray_b, mask_b, off: Tuple[int, int]):
     wh, wv, excess, obj = _build_cut_graph(
         pano_roi, gray_b, scene_roi.to(torch.float32) * 255.0,
         mask_b.to(torch.float32) * 255.0)
-    side = grid_mincut_auto(wh, wv, excess, obj)
+    with span("seams.solve"):
+        side = grid_mincut_auto(wh, wv, excess, obj)
     cut = torch.where(obj, side, mask_b)
     canvas_g[y:y + Hb, x:x + Wb] = torch.where(cut, gray_b, pano_roi)
     scene[y:y + Hb, x:x + Wb] = scene_roi | cut

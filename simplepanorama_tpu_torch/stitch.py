@@ -43,6 +43,7 @@ from simplepanorama_tpu_torch.geometry.graph import (
     Component, order_nodes_by_connection)
 from simplepanorama_tpu_torch.ops import ba_kernel
 from simplepanorama_tpu_torch.utils.device import checked_device
+from simplepanorama_tpu_torch.utils.timing import global_timer, span
 
 
 @dataclasses.dataclass
@@ -161,6 +162,7 @@ def _chunk_plan(prefix: np.ndarray, L: int, n_pad: int, Mcap: int,
     return chunks
 
 
+@span("ba.add_camera")
 def _add_camera(cams: ba.CamState, l: int, conn: int, H_pair: torch.Tensor):
     """Activate camera l (addition order) from its connection: inherit the
     focal, zero principal point, rotation from the pairwise homography."""
@@ -257,7 +259,8 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     the card: ba.program's kept LMProgram of the bucket's shapes, held by
     this thread for the chunk, loaded with this problem's match tables,
     captured only when the process has none yet
-    (a chunk's LMCounts count the captures it made);
+    (a chunk's LMCounts count the captures it made; the chunks' trials
+    go to the timer's counters, ``_count_trials``);
     ``fused=False``, and every run on the CPU, runs the same trial
     eagerly. Progress and cancellation are per chunk. ``device`` is the
     card unless the caller asks for another.
@@ -301,8 +304,10 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     inv = np.empty(n, np.int64)
     inv[perm] = np.arange(n)
 
-    data, prefix = build_ba_data(comp, adjres, device=device, order=order,
-                                 relabel=inv, cap_round=512 * world)
+    with span("ba.build_data"):
+        data, prefix = build_ba_data(comp, adjres, device=device,
+                                     order=order, relabel=inv,
+                                     cap_round=512 * world)
     Mcap = int(data.mi.shape[0])
     mesh = _ba_mesh(mesh, Mcap)
     world = 1 if mesh is None else mesh.size
@@ -329,6 +334,7 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     # (n_cap, m_cap) -> the sharded ba.LMProgram, for this call only: its
     # graph holds the group's communicator
     programs = {}
+    chunk_counts = []
     try:
         m_round = int(np.lcm(2048, 512 * world))
         for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap,
@@ -355,11 +361,12 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             elif on_card:
                 ws = ba_kernel.workspace(m_cap // world, n_cap, device)
             with held as program:
-                cams_c, _ = _lm_chunk(cams_c, active_c, data_c, lo, hi,
-                                      order_conns, H_pair, vaug,
-                                      float(cfg.lambda_), bool(cfg.fast),
-                                      program, ws,
-                                      None if mesh is None else mesh.group)
+                cams_c, counts = _lm_chunk(
+                    cams_c, active_c, data_c, lo, hi, order_conns, H_pair,
+                    vaug, float(cfg.lambda_), bool(cfg.fast), program, ws,
+                    None if mesh is None else mesh.group)
+            if counts is not None:
+                chunk_counts.append(counts)
             if mesh is not None:
                 cams_c = cams_c._replace(b=unshard_matches(cams_c.b, mesh))
             cams = ba.CamState(
@@ -376,9 +383,11 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
         for program in programs.values():
             program.close()
 
-    focal_new = cams.focal.cpu().double().numpy()
-    ppal_new = cams.ppal.cpu().double().numpy()
-    rv_new = cams.rotvec.cpu().double().numpy()
+    with span("ba.readback"):
+        focal_new = cams.focal.cpu().double().numpy()
+        ppal_new = cams.ppal.cpu().double().numpy()
+        rv_new = cams.rotvec.cpu().double().numpy()
+    _count_trials(chunk_counts)
     for l in range(L):   # addition order back to local ids
         i = int(perm[l])
         K[i] = np.array([[focal_new[l], 0, ppal_new[l, 0]],
@@ -386,6 +395,19 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                          [0, 0, 1.0]])
         rot[i] = _rodrigues_np(rv_new[l])
     return result(K)
+
+
+def _count_trials(chunk_counts: List[LMCounts]) -> None:
+    """Add the chunks' trials to the counters ``ba.trials_executed``
+    (executed, no-op and warm-up trials included) and ``ba.lm_trials``
+    (the runs' own trials): one read of the device's trial counts, after
+    the readback has synced."""
+    if not chunk_counts:
+        return
+    timer = global_timer()
+    timer.add("ba.trials_executed", sum(c.executed for c in chunk_counts))
+    timer.add("ba.lm_trials",
+              int(torch.stack([c.trials for c in chunk_counts]).sum()))
 
 
 def _rodrigues_np(v: np.ndarray) -> np.ndarray:

@@ -113,6 +113,25 @@ def test_tiled_kernel_matches_plain_version(cuda, H, W, seed):
         >= 0.999
 
 
+@pytest.mark.parametrize("kernel", ["grid_mincut", "grid_mincut_tiled"])
+def test_solve_adds_its_stats_to_the_counters(cuda, kernel):
+    """One card solve adds its outer rounds and push and BFS nanoseconds
+    (its ``last_stats``) to the timer's ``mincut.*`` counters."""
+    from simplepanorama_tpu_torch.utils.timing import global_timer
+    host = cut_grid(200, 328, 3, (40, 90, 82, 148))
+    t = [torch.from_numpy(a).to(cuda) for a in host]
+    counters = global_timer().counters
+    names = ("mincut.outer", "mincut.push_ns", "mincut.bfs_ns")
+    before = {k: counters.get(k, 0) for k in names}
+    solver = getattr(maxflow, kernel)
+    solver(*t)
+    stats = solver.last_stats
+    assert stats["outer"] > 0 and stats["push_ns"] > 0 and stats["bfs_ns"] > 0
+    assert {k: counters[k] - before[k] for k in names} == {
+        "mincut.outer": stats["outer"], "mincut.push_ns": stats["push_ns"],
+        "mincut.bfs_ns": stats["bfs_ns"]}
+
+
 _BFS_GRIDS = {
     "random24x32": lambda: cut_grid(24, 32, 0, (4, 10, 8, 14)),
     "random48x160": lambda: cut_grid(48, 160, 7, (10, 20, 40, 70)),

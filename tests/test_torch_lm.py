@@ -21,6 +21,7 @@ from simplepanorama_tpu.geometry.graph import Component as JComponent
 from simplepanorama_tpu_torch import Config as TConfig
 from simplepanorama_tpu_torch import ba as tba
 from simplepanorama_tpu_torch import stitch as tstitch
+from simplepanorama_tpu_torch.utils.timing import global_timer
 
 from test_torch_modules import _ba_problem
 
@@ -187,6 +188,8 @@ def test_bundle_adjust_stitching_matches_jax(fast):
         calls.append(out[1])
         return out
     tstitch._lm_chunk = counted
+    counters = global_timer().counters
+    before = dict(counters)
     try:
         rt = tstitch.bundle_adjust_stitching(comp, adjres, sizes, focal,
                                              TConfig(fast=fast),
@@ -196,6 +199,12 @@ def test_bundle_adjust_stitching_matches_jax(fast):
     assert rt.order == rj.order and rt.nodes == rj.nodes
     assert sum(c.runs for c in calls) == len(comp.nodes) - 1
     assert all(c.graphs == 0 for c in calls)   # no graph on the CPU
+    # the chunks' counts reach the timer's counters
+    delta = {k: counters[k] - before.get(k, 0)
+             for k in ("ba.trials_executed", "ba.lm_trials")}
+    assert delta["ba.trials_executed"] == sum(c.executed for c in calls)
+    assert delta["ba.lm_trials"] == sum(int(c.trials) for c in calls)
+    assert 0 < delta["ba.lm_trials"] <= delta["ba.trials_executed"]
     fj, ft = np.asarray(rj.K)[:, 0, 0], rt.K[:, 0, 0]
     np.testing.assert_allclose(ft, fj, rtol=1e-3)
     np.testing.assert_allclose(rt.K, rj.K, rtol=1e-3, atol=1e-3)
