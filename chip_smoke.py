@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each printing one line per input:
   env     the card (nvidia-smi name and power limit), torch/CUDA/nvcc;
-  build   nvcc builds of csrc/mincut.cu, csrc/mincut_tiled.cu and
-          csrc/ba_assemble.cu from the checkout's sources, all at once;
+  build   nvcc builds of csrc/mincut.cu, csrc/mincut_tiled.cu,
+          csrc/ba_assemble.cu and csrc/ba_trial.cu from the checkout's
+          sources, all at once;
   kernel  grid_mincut (kernel 1, CUDA) against grid_mincut_ref (plain
           PyTorch) on the card: a 48x160 random grid with a hole, and a
           seam graph built by render/graphcut._build_cut_graph from two
@@ -117,6 +118,12 @@ Phases, each printing one line per input:
           host reads, graphs, kernel-3 launches, the cameras of the two,
           the device's busy share (torch.profiler), kernel 3 at each
           bucket;
+  trial   the LM trial at each bucket of the same two problems: kernels
+          4 and 5 against their plain versions, their device ms, the
+          plain versions' ms and the bounds; the single-card trial's
+          graph (kernels 4, 3, 5) against the same program captured with
+          ba.lm_trial: device operations a replay, device ms and us per
+          trial;
   slice5  the little planet: the slice-3 loop through
           Panorama(paths, device="cuda").stitch(Config(proj=
           STEREOGRAPHIC)) (fix_center on, as by default), get_preview()
@@ -825,8 +832,8 @@ def _count_lm(stitch):
     bucket's program was kept from an earlier stitch: ba.program), and
     the last LM run's error."""
     counts = {"lm_runs": 0, "lm_trials": 0, "lm_accepted": 0,
-              "trials_executed": 0, "host_reads": 0, "graphs": 0,
-              "capture_s": 0.0, "lm_error": None}
+              "trials_executed": 0, "fused_trials": 0, "host_reads": 0,
+              "graphs": 0, "capture_s": 0.0, "lm_error": None}
     chunk = stitch._lm_chunk
 
     def counted(*a, **kw):
@@ -835,6 +842,7 @@ def _count_lm(stitch):
         counts["lm_trials"] += int(c.trials)
         counts["lm_accepted"] += int(c.accepted)
         counts["trials_executed"] += c.executed
+        counts["fused_trials"] += c.fused
         counts["host_reads"] += c.reads
         counts["graphs"] += c.graphs
         counts["capture_s"] += c.capture_s
@@ -847,13 +855,48 @@ def _count_lm(stitch):
         stitch._lm_chunk = chunk
 
 
-def _check_kernel3_path(name, launches, lm):
-    """Kernel 3 launched once per trial executed on the path ``name``."""
+def _check_kernel3_path(name, launches, lm, k45, trial_kernels=True):
+    """Kernel 3 launched once per trial executed on the path ``name``,
+    and kernels 4 and 5 (their launches ``k45``, counted since the
+    path's reset) too, each trial counted in ba.fused_trials where the
+    path counts it (_check_trial_path); none of them where the path's
+    trial is ba.lm_step (``trial_kernels`` False)."""
     if launches != lm["trials_executed"] or launches < lm["lm_trials"] \
             or lm["lm_trials"] < 1:
         raise RuntimeError(f"{name}: kernel 3 launched {launches} times for "
                            f"{lm['trials_executed']} trials executed "
                            f"({lm['lm_trials']} LM trials)")
+    _check_trial_path(name, k45, lm["trials_executed"] if trial_kernels
+                      else 0, lm["fused_trials"])
+
+
+# kernels 4 and 5's launches on each path of the run, by path name:
+# (trial_streams, solve_accept, trials executed through them)
+_TRIAL_PATHS = {}
+
+
+def _trial_launches(reset=False):
+    """Launches of kernels 4 and 5 (ops/ba_trial: trial_streams,
+    solve_accept; a graph's replays counted) since their last reset;
+    ``reset`` zeroes them after reading."""
+    from simplepanorama_tpu_torch.ops import ba_trial
+    got = (ba_trial.trial_streams.launches, ba_trial.solve_accept.launches)
+    if reset:
+        ba_trial.trial_streams.launches = 0
+        ba_trial.solve_accept.launches = 0
+    return got
+
+
+def _check_trial_path(name, k45, want, fused=None):
+    """Kernels 4 and 5 launched ``want`` times each on the path ``name``
+    (its trials executed on a single card, 0 where the trial is
+    ba.lm_step), and ba.fused_trials (``fused``, where the path counts
+    it) equal to that; recorded in _TRIAL_PATHS."""
+    _TRIAL_PATHS[name] = (*k45, want)
+    if tuple(k45) != (want, want) or fused not in (None, want):
+        raise RuntimeError(f"{name}: kernels 4 and 5 launched {tuple(k45)} "
+                           f"times and {fused} fused trials for {want} "
+                           "trials")
 
 
 def _cli_run(torch, cli, timer, maxflow, ba_kernel, argv):
@@ -867,6 +910,7 @@ def _cli_run(torch, cli, timer, maxflow, ba_kernel, argv):
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(maxflow)
     ba_kernel.assemble_streams.launches = 0
+    _trial_launches(reset=True)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -882,7 +926,8 @@ def _cli_run(torch, cli, timer, maxflow, ba_kernel, argv):
             "stages_s": dict(timer.durations),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "mincut_launches": list(_launches(maxflow)),
-            "assemble_streams_launches": ba_kernel.assemble_streams.launches}
+            "assemble_streams_launches": ba_kernel.assemble_streams.launches,
+            "trial_launches": _trial_launches()}
 
 
 def _slice3_ba_problem(torch, comp, adjres, res, n_pad=16):
@@ -936,6 +981,7 @@ def _slice5(torch, paths, f_true, tmp, card):
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(maxflow)
     ba_kernel.assemble_streams.launches = 0
+    _trial_launches(reset=True)
     t0 = time.perf_counter()
     with _count_lm(stitch) as lm5:
         pano = Panorama(paths, device="cuda").stitch(sten)
@@ -944,6 +990,7 @@ def _slice5(torch, paths, f_true, tmp, card):
     wall = time.perf_counter() - t0
     launches5_stitch = _launches(maxflow)
     launches5_k3 = ba_kernel.assemble_streams.launches
+    k45_5 = _trial_launches()
     stages5 = dict(timer.durations)
     t0 = time.perf_counter()
     full = pano.get_panorama()
@@ -1035,7 +1082,7 @@ def _slice5(torch, paths, f_true, tmp, card):
     os.environ.pop("SPT_SYNC_STAGES")
     if tuple(pano.connected) != (12, 12):
         raise RuntimeError(f"slice5 connected {pano.connected}")
-    _check_kernel3_path("slice5", launches5_k3, lm5)
+    _check_kernel3_path("slice5", launches5_k3, lm5, k45_5)
     if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
         raise RuntimeError(f"slice5 focals {focals} vs true {f_true}")
     if circle is None:
@@ -1129,6 +1176,7 @@ def _options_phase(torch, paths, f_true, card, slice5_result):
                 stretching=Stretch.LINEAR_SCALING))]
     _reset_launches(maxflow)
     ba_kernel.assemble_streams.launches = 0
+    _trial_launches(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _count_lm(stitch) as lm:
@@ -1141,6 +1189,7 @@ def _options_phase(torch, paths, f_true, card, slice5_result):
         if k:
             _reset_launches(maxflow)
             ba_kernel.assemble_streams.launches = 0
+            _trial_launches(reset=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pano.set_config(cfg)
@@ -1151,6 +1200,7 @@ def _options_phase(torch, paths, f_true, card, slice5_result):
         launches_k3 = ba_kernel.assemble_streams.launches
         if not k:
             launches_stitch, k3 = launches, launches_k3
+            k45 = _trial_launches()
         t0 = time.perf_counter()
         full = pano.get_panorama()
         torch.cuda.synchronize()
@@ -1221,7 +1271,7 @@ def _options_phase(torch, paths, f_true, card, slice5_result):
     if launches_stitch != (n_cuts, 0):
         raise RuntimeError(f"options: min-cut launches {launches_stitch} "
                            f"for {n_cuts} cuts, wanted kernel 1 once a cut")
-    _check_kernel3_path("options", k3, lm)
+    _check_kernel3_path("options", k3, lm, k45)
     return launches_stitch, k3
 
 
@@ -1407,6 +1457,31 @@ def _busy_share(torch, stitch, run, chunks):
 BUSY_CHUNKS = {True: 2, False: 1}
 
 
+def _eager_kernel_trials(torch):
+    """A stand-in for ba.lm_trial that runs kernels 4, 3 and 5 eagerly
+    (ba.fused_trial on a copy of the state, the problem's tables copied
+    once into buffers of the layout the kernels take): ba.lm_run_eager
+    then runs the graph's arithmetic without a graph."""
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.ops import ba_trial
+    held = {}
+
+    def trial(st, pb, fast):
+        if held.get("pb") is not pb:
+            data = ba.BAData(*(t.clone() for t in pb.data))
+            held.update(pb=pb, copy=pb._replace(
+                data=data, cam_active=pb.cam_active.clone()),
+                tw=ba_trial.workspace(data.mi.shape[0],
+                                      st.cams.focal.shape[0],
+                                      data.pi.shape[0], "cuda"))
+        new = ba.LMState(ba.CamState(*(t.clone() for t in st.cams)),
+                         *(t.clone() for t in st[1:]))
+        live = torch.zeros((), dtype=torch.bool, device="cuda")
+        ba.fused_trial(new, held["copy"], fast, live, held["tw"])
+        return new
+    return trial
+
+
 def _ba_phase(torch, problems, card):
     """Each recorded BA problem {name: (comp, adjres, sizes, focal, cfg)}
     through stitch.bundle_adjust_stitching on the card with fused=False
@@ -1419,24 +1494,32 @@ def _ba_phase(torch, problems, card):
     of each with the device's busy share measured over its first chunks
     (torch.profiler; the graph run cold), and kernel 3 at each capacity
     bucket of the schedule (the streams of that bucket's last state)
-    against its plain version. Checks: the same LM trials and accepted
-    steps in every run, cameras within 1e-5 relative between the two,
-    kernel 3 launched once per trial executed, one graph per bucket in a
-    cold run, none in the warm run, whose trials, cameras and error
-    equal the cold run's bit for bit. A host sync inside a trial would
-    fail the graph run's capture. Returns {name: {"launches": kernel-3 launches of the
-    runs, "buckets": the kernel3 results of the largest bucket}}."""
+    against its plain version. The graph runs' trial is kernels 4, 3
+    and 5; the eager run's is ba.lm_step, and before it one more eager
+    run takes kernels 4, 3 and 5 launched one by one
+    (_eager_kernel_trials), the first run the others are held to.
+    Checks: the same LM trials and accepted steps in every run but
+    ba.lm_step's, cameras within 1e-5 relative between them; kernel 3
+    launched once per trial executed, kernels 4 and 5 too in the
+    kernels' runs and never in ba.lm_step's (_check_kernel3_path), which
+    runs the same LM runs; one graph per bucket in a cold run, none in
+    the warm run, whose trials, cameras and error equal the cold run's
+    bit for bit. A host sync inside a trial would fail the graph run's
+    capture. Returns {name: {"launches": kernel-3 launches of the runs,
+    "buckets": the kernel3 results of the largest bucket}}."""
     from simplepanorama_tpu_torch import ba, stitch
     from simplepanorama_tpu_torch.ops import ba_kernel
     out = {}
     for name, (comp, adjres, sizes, focal, cfg) in problems.items():
         ref = graphs = cold = None
         launches = 0
-        walls = {False: [], True: [], "warm": []}
+        walls = {"lm_step": [], False: [], True: [], "warm": []}
         chunks = []
-        for fused, warm in ((False, False), (True, False), (True, False),
-                            (True, True)):
+        for step, fused, warm in ((True, False, False),
+                                  (False, False, False), (False, True, False),
+                                  (False, True, False), (False, True, True)):
             ba_kernel.assemble_streams.launches = 0
+            _trial_launches(reset=True)
             record = fused and not walls[True]    # the first graph run
             if fused and not warm:
                 ba.release_programs()
@@ -1451,17 +1534,31 @@ def _ba_phase(torch, problems, card):
                         chunks.append((res[0], active.clone(), data))
                     return res
                 stitch._lm_chunk = recording
+                lm_trial = ba.lm_trial
+                if not fused and not step:
+                    ba.lm_trial = _eager_kernel_trials(torch)
                 try:
                     res = stitch.bundle_adjust_stitching(
                         comp, adjres, sizes, focal, cfg, device="cuda",
                         fused=fused)
                 finally:
                     stitch._lm_chunk = counted
+                    ba.lm_trial = lm_trial
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            walls["warm" if warm else fused].append(wall)
+            walls["warm" if warm else "lm_step" if step else fused].append(
+                wall)
             k3 = ba_kernel.assemble_streams.launches
+            k45 = _trial_launches()
             launches += k3
+            if step:
+                _line("ba", problem=name, trial="ba.lm_step", fused=False,
+                      fast=bool(cfg.fast), wall_s=wall, **lm,
+                      assemble_streams_launches=k3, device=card)
+                _check_kernel3_path(f"ba {name} lm_step", k3, lm, k45,
+                                    trial_kernels=False)
+                lm_step_runs = lm["lm_runs"]
+                continue
             if ref is None:
                 ref = (res, lm)
             if fused and graphs is None:
@@ -1491,7 +1588,8 @@ def _ba_phase(torch, problems, card):
                             torch.cuda.memory_reserved()),
                         "private_pools_after_release": _private_pool_bytes(
                             torch)})
-            _line("ba", problem=name, fused=fused, warm=warm,
+            _line("ba", problem=name, trial="kernels 4, 3, 5",
+                  fused=fused, warm=warm,
                   fast=bool(cfg.fast), wall_s=wall, **lm,
                   ms_per_trial=wall * 1e3 / max(1, lm["lm_trials"]),
                   assemble_streams_launches=k3,
@@ -1501,9 +1599,10 @@ def _ba_phase(torch, problems, card):
                   device=card)
             if (lm["lm_runs"], lm["lm_trials"], lm["lm_accepted"]) != (
                     ref[1]["lm_runs"], ref[1]["lm_trials"],
-                    ref[1]["lm_accepted"]):
+                    ref[1]["lm_accepted"]) or lm_step_runs != lm["lm_runs"]:
                 raise RuntimeError(f"ba {name}: fused={fused} ran {lm}, the "
-                                   f"first run {ref[1]}")
+                                   f"first run {ref[1]}, ba.lm_step "
+                                   f"{lm_step_runs} LM runs")
             if df > 1e-5 or drot > 1e-5:
                 raise RuntimeError(f"ba {name}: fused={fused} cameras differ "
                                    f"from the first run's by {df} (focal) "
@@ -1517,7 +1616,12 @@ def _ba_phase(torch, problems, card):
                 raise RuntimeError(f"ba {name}: the warm graph run captured "
                                    f"{lm['graphs']} graphs, equal to the "
                                    f"cold run: {extra['cold_equal_bits']}")
-            _check_kernel3_path(f"ba {name}", k3, lm)
+            # the eager kernels' trials are no program's: ba.fused_trials
+            # counts none of them
+            _check_kernel3_path(f"ba {name} {'graph' if fused else 'eager'}"
+                                f"{' warm' if warm else ''}", k3,
+                                lm if fused else dict(lm, fused_trials=None),
+                                k45)
         busy = {}
         for fused in (False, True):
             ba.release_programs()    # the graph run's window holds a capture
@@ -1546,6 +1650,7 @@ def _ba_phase(torch, problems, card):
                 streams, n_cap, not cfg.fast, card,
                 active_matches=int(active_m.sum()))
         _line("ba", problem=name, summary=True,
+              lm_step_walls_s=walls["lm_step"],
               eager_walls_s=walls[False], graph_walls_s=walls[True],
               warm_graph_walls_s=walls["warm"], busy=busy,
               buckets=[list(k) for k in sorted(buckets)], device=card)
@@ -1554,6 +1659,257 @@ def _ba_phase(torch, problems, card):
                                f"{len(buckets)} capacity buckets")
         out[name] = {"launches": launches,
                      "largest": results[max(results)]}
+    return out
+
+
+def _trial_bound(M, N, P, fast):
+    """Bounds (ms, side) of kernels 4 and 5 at one bucket: bytes each
+    input read once and each output written once, against 3.35 TB/s;
+    f32 operations against 67 TFLOP/s. Kernel 4 reads mi, mj (4 B), mp
+    (8 B), q, t and, relaxed, b (8 B each) and active_m (1 B) a match,
+    writes Ai23, Aj23 (48 B each), B23 (16 B), the residual rows (8 B),
+    the five l and g streams (20 B) and, relaxed, e_B (8 B) and V^-1
+    (16 B); it does ~400 operations a match (dehomogenization 25, dH/dcam
+    b 180 and its projection 120, B23 20, V, e_B and V^-1 ~55) and ~1,800
+    a pair table (thirteen 3x3 chains). Kernel 5 reads U and, relaxed,
+    YW (36 N^2 floats each), e_A, yeb, then a match's mi, mj, mp, q, t,
+    active_m and, relaxed, Ai23, Aj23, B23, e_B, V^-1 and b (41 or 169
+    B), writes b (8 B, relaxed; the trial b once more through its
+    scratch); it does (2/3) n^3 for the LU of n = 6N, n^2 for the
+    back-substitution, and ~40 operations a match (the trial residual
+    and its norm), relaxed 60 more (W^T da, db)."""
+    n = 6 * N
+    k4_bytes = M * (41 + (8 if not fast else 0)) + M * (140 + (
+        0 if fast else 24))
+    k4_ops = M * 400 + P * 1800
+    k5_bytes = (n * n * (1 if fast else 2) + 2 * n) * 4 + M * (
+        41 if fast else 169) + (0 if fast else M * 24)
+    k5_ops = 2 * n ** 3 / 3 + n * n + M * (40 if fast else 100)
+    return _bound(k4_bytes, k4_ops), _bound(k5_bytes, k5_ops)
+
+
+def _graph_ops(torch, graph):
+    """The operations one replay of ``graph`` runs on the card, by name,
+    from torch.profiler (the ranges the host marks left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() != cuda_t}
+    return [e.name() for e in events
+            if e.device_type() == cuda_t and e.name() not in host]
+
+
+def _lm_trial_program(data, n_cams, fast):
+    """A single-card ba.LMProgram whose captured trial is ba.lm_trial (the
+    trial before kernels 4 and 5, a sharded program's): the trial phase's
+    baseline and the dist phase's single-card run."""
+    from simplepanorama_tpu_torch import ba
+
+    class LmTrialProgram(ba.LMProgram):
+        trial_kernels = False
+
+        def trial(self):
+            self._store(ba.lm_trial(self.st, self.pb, self.fast))
+    return LmTrialProgram(data, n_cams, fast)
+
+
+def _event_ms(torch, launch, reset=None, reps=9):
+    """Median device ms of ``launch()`` by CUDA events around it, the card
+    kept busy before the first event (torch.cuda._sleep) so that the
+    events time the kernels and not the host's launch; ``reset()`` runs
+    before each, outside the events."""
+    ts = []
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        launch()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return statistics.median(ts)
+
+
+def _trial_phase(torch, problems, card):
+    """The LM trial at each capacity bucket of the BA problems
+    {name: (comp, adjres, sizes, focal, cfg)} (slice 1's is the
+    benchmark cell's: 12 views of 700 px, relaxed objective), from the
+    result of the bucket's last chunk with the focals 3% high and the
+    rotations moved (_perturbed), so the trials are live:
+     * kernels 4 and 5 against their plain versions (ba.trial_streams_ref,
+       ba.solve_accept_ref) on that state: the largest difference of each
+       stream over its largest entry (at most 1e-4), the same accept
+       decision, and each camera tensor's largest difference within 1e-4
+       of the trial's step (max |want - start|) plus 4 float32 roundings
+       of its largest entry; each kernel's device ms by CUDA events
+       around its eager launch (_event_ms; kernel 5 from the reloaded
+       state each time), the plain version's ms (CUDA events, eager on
+       the card) and the bound (_trial_bound);
+     * the whole trial: the bucket's single-card LMProgram (kernels 4, 3
+       and 5 captured) against the same buffers with the trial captured
+       as ba.lm_trial (_lm_trial_program, what the sharded program still
+       replays): device operations one replay runs (torch.profiler), us
+       per trial by CUDA events over groups of 8 replays (each group from
+       the reloaded state) and device ms per trial by the profiler (None
+       where it recorded none of the graph's kernels).
+    One "trial" line per bucket; returns the numbers of the largest
+    bucket of slice 1's problem."""
+    from simplepanorama_tpu_torch import ba, stitch
+    from simplepanorama_tpu_torch.ops import ba_kernel, ba_trial
+    out = {}
+    copy = lambda st: ba.LMState(ba.CamState(*(t.clone() for t in st.cams)),
+                                 *(t.clone() for t in st[1:]))
+    for name, (comp, adjres, sizes, focal, cfg) in problems.items():
+        fast = bool(cfg.fast)
+        buckets = {}
+        chunk = stitch._lm_chunk
+
+        def recording(cams, active, data, *a, **kw):
+            res = chunk(cams, active, data, *a, **kw)
+            buckets[(res[0].focal.shape[0], data.mi.shape[0])] = (
+                res[0], active.clone(), data)
+            return res
+        stitch._lm_chunk = recording
+        try:
+            stitch.bundle_adjust_stitching(comp, adjres, sizes, focal, cfg,
+                                           device="cuda")
+        finally:
+            stitch._lm_chunk = chunk
+        for (N, M), (cams, active, data) in sorted(buckets.items()):
+            P = data.pi.shape[0]
+            start = _perturbed(torch, cams, active)
+            lam = float(cfg.lambda_)
+            row = {}
+            for fused in (True, False):
+                prog = ba.LMProgram(data, N, fast) if fused else \
+                    _lm_trial_program(data, N, fast)
+                try:
+                    prog._load(start, active, lam)
+                    if fused:
+                        loaded = copy(prog.st)
+                        st = copy(loaded)
+                        live = prog.live.clone()
+                        ts = ba_trial.trial_streams(st, prog.pb, fast,
+                                                    prog.tw)
+                        streams = ba_trial.TrialStreams(
+                            *(t.clone() for t in ts))
+                        sums = ba_kernel.assemble_streams(
+                            *ts[:9], prog.pb.mi, prog.pb.mj, N,
+                            with_schur=not fast, ws=prog.pb.ws)
+                        ba_trial.solve_accept(st, prog.pb, fast, ts, sums,
+                                              live, prog.tw)
+                        want_ts = ba.trial_streams_ref(loaded, prog.pb,
+                                                       fast)
+                        ref_in = streams if not fast else streams._replace(
+                            eB=None, vinv=None)
+                        want, _ = ba.solve_accept_ref(loaded, prog.pb, fast,
+                                                      ref_in, sums)
+                        rel = lambda g, w: float((g - w).abs().max()) / max(
+                            float(w.abs().max()), 1.0)
+                        row["k4_max_rel"] = max(
+                            rel(g, w) for g, w in zip(streams, want_ts)
+                            if w is not None)
+                        row["k5_max_rel"] = max(
+                            rel(g, w) for g, w in zip(st.cams, want.cams))
+                        steps, within = {}, True
+                        for k, g, w, s0 in zip(ba.CamState._fields,
+                                               st.cams, want.cams,
+                                               loaded.cams):
+                            step = float((w - s0).abs().max())
+                            err = float((g - w).abs().max())
+                            steps[k] = [err, step]
+                            within &= err <= 1e-4 * step + 4 * 2.0 ** -24 \
+                                * float(w.abs().max())
+                        row["k5_err_and_step"] = steps
+                        row["k5_within_step"] = within
+                        row["k5_same_decision"] = bool(
+                            torch.equal(st.n_acc, want.n_acc))
+                        row["k4_plain_ms"] = _time_ms(
+                            torch, ba.trial_streams_ref,
+                            (loaded, prog.pb, fast))
+                        row["k5_plain_ms"] = _time_ms(
+                            torch, ba.solve_accept_ref,
+                            (loaded, prog.pb, fast, ref_in, sums))
+                        row["k4_ms"] = _event_ms(
+                            torch, lambda: ba_trial.trial_streams(
+                                st, prog.pb, fast, prog.tw))
+
+                        def reload():
+                            for dst, src in zip(prog._tensors(st),
+                                                prog._tensors(loaded)):
+                                dst.copy_(src)
+                        ts = ba_trial.trial_streams(loaded, prog.pb, fast,
+                                                    prog.tw)
+                        sums = ba_kernel.assemble_streams(
+                            *ts[:9], prog.pb.mi, prog.pb.mj, N,
+                            with_schur=not fast, ws=prog.pb.ws)
+                        row["k5_ms"] = _event_ms(
+                            torch, lambda: ba_trial.solve_accept(
+                                st, prog.pb, fast, ts, sums, live, prog.tw),
+                            reload)
+                    prog._capture()
+                    ops = _graph_ops(torch, prog.graph)
+                    by_kernel = {}
+                    walls = []
+                    for rep_ in range(8):
+                        prog._load(start, active, lam)
+                        torch.cuda.synchronize()
+                        if rep_ == 0:
+                            by_kernel = _device_ms_by_kernel(
+                                torch, lambda: [prog.graph.replay()
+                                                for _ in range(8)], (), 1)
+                            continue
+                        e0 = torch.cuda.Event(enable_timing=True)
+                        e1 = torch.cuda.Event(enable_timing=True)
+                        e0.record()
+                        for _ in range(8):
+                            prog.graph.replay()
+                        e1.record()
+                        torch.cuda.synchronize()
+                        walls.append(e0.elapsed_time(e1) / 8)
+                    key = "fused" if fused else "lm_trial"
+                    row[key] = {
+                        "graph_ops": len(ops),
+                        "us_per_trial": statistics.median(walls) * 1e3,
+                        "device_ms_per_trial": (sum(by_kernel.values()) / 8
+                                                if by_kernel else None),
+                        "top": sorted(((v / 8, k) for k, v in
+                                       by_kernel.items()), reverse=True)[:4]}
+                    if fused:
+                        row["per_trial"] = {
+                            k.__name__: v for k, v in prog.per_trial.items()}
+                finally:
+                    prog.close()
+            b4, b5 = _trial_bound(M, N, P, fast)
+            row.update(k4_bound_ms=b4[0], k4_bound_by=b4[1],
+                       k5_bound_ms=b5[0], k5_bound_by=b5[1])
+            _line("trial", problem=name, n_cams=N, matches=M, pairs=P,
+                  fast=fast, active_matches=int(ba._active_matches(
+                      data, active).sum()), **row, device=card)
+            if row["per_trial"] != {"assemble_streams": 1,
+                                    "trial_streams": 1, "solve_accept": 1} \
+                    or row["fused"]["graph_ops"] > 6:
+                raise RuntimeError(f"trial {name} n{N} m{M}: the fused "
+                                   f"trial ran {row['fused']['graph_ops']} "
+                                   f"operations, {row['per_trial']}")
+            if row["k4_max_rel"] > 1e-4 or not row["k5_same_decision"] \
+                    or row["k5_max_rel"] > 1e-4 or not row["k5_within_step"]:
+                raise RuntimeError(f"trial {name} n{N} m{M}: kernels 4 and "
+                                   f"5 disagree with their plain versions "
+                                   f"({row['k4_max_rel']}, "
+                                   f"{row['k5_max_rel']}, "
+                                   f"{row['k5_err_and_step']}, "
+                                   f"{row['k5_same_decision']})")
+            if name == "slice1_relaxed":
+                out = row
     return out
 
 
@@ -1579,12 +1935,14 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
         active, fast, lambda)} (the BA problems of slices 1 and 3 as
         _slice3_ba_problem builds them, started from _perturbed cameras,
         50 trials at most), against the same sharded LM run eagerly
-        (fused=False) and the single-card graph (ba.LMProgram without a
-        group) and eager (ba.lm_run_eager) runs: trials, accepted steps,
-        error and every camera tensor equal bit for bit (an all-reduce
-        over one rank is the identity), kernel 3 launched once per trial
-        executed in each; one line a problem, with each run's wall,
-        capture seconds, trials executed and host reads;
+        (fused=False) and the single-card eager run (ba.lm_run_eager):
+        trials, accepted steps, error and every camera tensor equal bit
+        for bit (an all-reduce over one rank is the identity), and the
+        single-card graph (ba.LMProgram without a group: kernels 4, 3
+        and 5, whose LU parts from cuSOLVER's once lambda is small),
+        which must end below its start's error; kernel 3 launched once
+        per trial executed in each; one line a problem, with each run's
+        wall, capture seconds, trials executed and host reads;
       * tiled_compose.multi_blend_sharded against blending.multi_blend on
         slice 2's blocks (``pano2``): within 0.05 on the 0..255 scale;
       * render/fullres.render_full_dev through the image-split schedule
@@ -1634,7 +1992,8 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
             runs = {}
 
             def single_graph():
-                program = ba.LMProgram(data, n_cams, fast)
+                # the trial captured as ba.lm_trial, the sharded program's
+                program = _lm_trial_program(data, n_cams, fast)
                 try:
                     out = program.run(cams0, active, lam)
                 finally:
@@ -1655,6 +2014,7 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
                         cams0, data, active, lam, fast=fast, ws=ws), 0.0))):
                 torch.cuda.synchronize()
                 ba_kernel.assemble_streams.launches = 0
+                _trial_launches(reset=True)
                 t0 = time.perf_counter()
                 (res, executed, reads), capture_s = fn()
                 torch.cuda.synchronize()
@@ -1665,6 +2025,7 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
                     host_reads=reads,
                     assemble_streams_launches=(
                         ba_kernel.assemble_streams.launches))
+                _check_trial_path(f"dist {name} {run}", _trial_launches(), 0)
             launches += runs["graph_sharded"]["assemble_streams_launches"]
             ref = runs["graph_sharded"]["res"]
             equal = {run: bool(
@@ -1674,9 +2035,10 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
             trials = runs["graph_sharded"]["trials"]
             _line("dist", check="lm_run_sharded", problem=name, fast=fast,
                   tolerance="the graphed sharded LM equal, bit for bit, to "
-                  "the eager sharded and the single-card graph and eager "
-                  "runs in trials, accepted steps, cameras and error; "
-                  "kernel 3 once per trial executed in each",
+                  "the eager sharded and the single-card graph (its trial "
+                  "captured as ba.lm_trial) and eager runs in trials, "
+                  "accepted steps, cameras and error; kernel 3 once per "
+                  "trial executed in each, kernels 4 and 5 never",
                   matches=M, n_cams=n_cams, equal_bits=equal,
                   ms_per_trial_executed={
                       run: 1e3 * (r["wall_s"] - r["capture_s"])
@@ -1832,9 +2194,12 @@ def _ba_cache_phase(torch, card, ba_problems):
             with ba.program(data, n_cams, fast) as prog:
                 programs.add(id(prog))
                 ba_kernel.assemble_streams.launches = 0
+                _trial_launches(reset=True)
                 got, executed, _ = prog.run(cams, active, lam)
                 torch.cuda.synchronize()
             k3 = ba_kernel.assemble_streams.launches
+            _check_trial_path(f"ba_cache fast={fast} {name}",
+                              _trial_launches(), executed)
             launches += k3
             fresh = ba.LMProgram(data, n_cams, fast)
             try:
@@ -1885,6 +2250,7 @@ def _hostcut_phase(torch, card, pano1):
     imgs_l, masks_l, corners_l = params._lists()
     _reset_launches(maxflow)
     ba_kernel.assemble_streams.launches = 0
+    _trial_launches(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     seams_l = graphcut.graph_cut(imgs_l, masks_l, corners_l, seq)
@@ -1892,6 +2258,7 @@ def _hostcut_phase(torch, card, pano1):
     wall = time.perf_counter() - t0
     launches = _launches(maxflow)
     k3 = ba_kernel.assemble_streams.launches
+    _check_trial_path("hostcut", _trial_launches(), 0)
     seams = pad_stack(seams_l, st.masks.shape[1:], "cuda") > 0
     agree = float((seams == st.seam_masks).float().mean())
     _line("hostcut", tolerance="one kernel-1 launch per cut, seams equal "
@@ -2050,7 +2417,8 @@ def _prefetch_oom_phase(torch, card, pano):
 
 def _thread_counts(stitch):
     """stitch._lm_chunk wrapped to count, per thread, what the chunks ran:
-    trials executed, LM trials, graphs captured and their seconds, the
+    trials executed, those through kernels 4 and 5, LM trials, graphs
+    captured and their seconds, the
     last run's error and the program keys (n_cams, M, P). Returns
     (wrapper, take): take() pops the calling thread's counts."""
     lock = threading.Lock()
@@ -2064,9 +2432,10 @@ def _thread_counts(stitch):
         trials, error = int(c.trials), float(c.error)
         with lock:
             d = counts.setdefault(threading.get_ident(), {
-                "trials_executed": 0, "lm_trials": 0, "graphs": 0,
-                "capture_s": 0.0, "keys": []})
+                "trials_executed": 0, "fused_trials": 0, "lm_trials": 0,
+                "graphs": 0, "capture_s": 0.0, "keys": []})
             d["trials_executed"] += c.executed
+            d["fused_trials"] += c.fused
             d["lm_trials"] += trials
             d["graphs"] += c.graphs
             d["capture_s"] += c.capture_s
@@ -2155,6 +2524,7 @@ def _threads_phase(torch, card, problems, loops):
                     ba.release_programs()
                 meet = threading.Barrier(2, timeout=60)
                 ba_kernel.assemble_streams.launches = 0
+                _trial_launches(reset=True)
                 t0 = time.perf_counter()
                 with ThreadPoolExecutor(2) as ex:
                     futs = [ex.submit(run, x, meet) for x in inputs]
@@ -2164,6 +2534,9 @@ def _threads_phase(torch, card, problems, loops):
                 k3 = ba_kernel.assemble_streams.launches
                 launches += k3
                 executed = sum(c["trials_executed"] for _, c in both)
+                _check_trial_path(f"threads {part} round {r + 1}",
+                                  _trial_launches(), executed,
+                                  sum(c["fused_trials"] for _, c in both))
                 graphs = sum(c["graphs"] for _, c in both)
                 equal = [same(b[0], a[0]) for a, b in zip(alone, both)]
                 want_graphs = len(keys[0] | keys[1]) if cold else 0
@@ -2240,7 +2613,13 @@ def _fresh_phase(torch, card, views3, loop700, tmp):
           and first["preview"] == second["preview"]
           and all(r["launches"]["grid_mincut"] == 11
                   and r["launches"]["assemble_streams"]
+                  == r["launches"]["trial_streams"]
+                  == r["launches"]["solve_accept"] == r["lm"]["fused"]
                   == r["lm"]["executed"] for r in (first, second)))
+    for k, row in enumerate((first, second)):
+        _TRIAL_PATHS[f"fresh stitch {k + 1}"] = (
+            row["launches"]["trial_streams"],
+            row["launches"]["solve_accept"], row["lm"]["executed"])
     if not ok:
         raise RuntimeError(f"fresh: the first and second stitch of a fresh "
                            f"process: {first} / {second}")
@@ -2265,7 +2644,7 @@ def main():
     from simplepanorama_tpu_torch import ba, stitch as tstitch
     from simplepanorama_tpu_torch.fixtures import (cut_grid, fkh360_views,
                                                    maze_grid)
-    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+    from simplepanorama_tpu_torch.ops import ba_kernel, ba_trial, maxflow
     from simplepanorama_tpu_torch.utils.checkpoint import load_stitch_state
     from simplepanorama_tpu_torch.pipeline import full_precision
     from simplepanorama_tpu_torch.utils.timing import global_timer
@@ -2277,17 +2656,19 @@ def main():
     _line("env", nvidia_smi=smi, torch=torch.__version__,
           cuda=torch.version.cuda, nvcc=_nvcc_version(), device=card)
 
-    # the three sources compiled at once, one nvcc each
+    # the four sources compiled at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
     sources = {k: "simplepanorama_tpu_torch/csrc/" + maxflow._KERNELS[k][1]
                for k in ("grid_mincut", "grid_mincut_tiled")}
     sources["assemble_streams"] = \
         "simplepanorama_tpu_torch/csrc/ba_assemble.cu"
+    sources["trial"] = "simplepanorama_tpu_torch/csrc/ba_trial.cu"
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         futs = {k: ex.submit(maxflow.build, k, True)
                 for k in ("grid_mincut", "grid_mincut_tiled")}
         futs["assemble_streams"] = ex.submit(ba_kernel.build, True)
+        futs["trial"] = ex.submit(ba_trial.build, True)
         build_s = {k: f.result() for k, f in futs.items()}
     _line("build", sources=sources, nvcc_seconds=build_s,
           wall_seconds=time.perf_counter() - t0)
@@ -2408,6 +2789,7 @@ def main():
         timer.counts.clear()
         _reset_launches(maxflow)
         ba_kernel.assemble_streams.launches = 0
+        _trial_launches(reset=True)
         problems = {}    # the BA problems the ba phase runs again
         bundle_adjust = tstitch.bundle_adjust_stitching
 
@@ -2430,6 +2812,7 @@ def main():
         wall = time.perf_counter() - t0
         launches1 = _launches(maxflow)
         launches1_k3 = ba_kernel.assemble_streams.launches
+        k45_1 = _trial_launches()
         focals = pano.result.K[:, 0, 0]
         cov = _coverage(preview)
         _line("slice", connected=list(pano.connected),
@@ -2442,7 +2825,7 @@ def main():
               assemble_streams_launches=launches1_k3, device=card)
         if tuple(pano.connected) != (12, 12):
             raise RuntimeError(f"slice connected {pano.connected}")
-        _check_kernel3_path("slice", launches1_k3, lm1)
+        _check_kernel3_path("slice", launches1_k3, lm1, k45_1)
         if launches1[0] < 11:
             raise RuntimeError(f"only {launches1[0]} kernel-1 launches")
         if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
@@ -2462,6 +2845,7 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(maxflow)
         ba_kernel.assemble_streams.launches = 0
+        _trial_launches(reset=True)
         t0 = time.perf_counter()
         with _count_lm(tstitch) as lm2, _cut_log(torch, maxflow) as log2:
             pano = Panorama(paths, device="cuda").stitch(
@@ -2474,6 +2858,7 @@ def main():
         # crop rule
         cuts2 = _cut_table(torch, maxflow, "slice2", log2)
         launches2_k3 = ba_kernel.assemble_streams.launches
+        k45_2 = _trial_launches()
         # get_panorama joins the prefetch that stitch() started (the
         # full-res decode and upload ran under get_preview) and renders
         t0 = time.perf_counter()
@@ -2534,7 +2919,7 @@ def main():
               assemble_streams_launches=launches2_k3, device=card)
         if tuple(pano.connected) != (12, 12):
             raise RuntimeError(f"slice2 connected {pano.connected}")
-        _check_kernel3_path("slice2", launches2_k3, lm2)
+        _check_kernel3_path("slice2", launches2_k3, lm2, k45_2)
         if np.max(np.abs(focals / f_true - 1.0)) > 0.02:
             raise RuntimeError(f"slice2 focals {focals} vs true {f_true}")
         if blocks[1] * blocks[2] <= maxflow.WHOLE_GRID_MAX_CELLS:
@@ -2661,10 +3046,12 @@ def main():
                 f"stitch: {warm_same}")
         for run in ("cold", "warm"):
             _check_kernel3_path("slice3 " + run, runs["stitch_" + run][
-                "assemble_streams_launches"], runs["stitch_" + run])
-            if runs["full_" + run]["assemble_streams_launches"]:
+                "assemble_streams_launches"], runs["stitch_" + run],
+                runs["stitch_" + run]["trial_launches"])
+            if runs["full_" + run]["assemble_streams_launches"] or any(
+                    runs["full_" + run]["trial_launches"]):
                 raise RuntimeError("slice3: the resumed full-res render "
-                                   "launched kernel 3")
+                                   "launched kernel 3, 4 or 5")
         launches3_path = sum(r["assemble_streams_launches"]
                              for r in runs.values())
         os.environ.pop("SPT_SYNC_STAGES")
@@ -2754,6 +3141,7 @@ def main():
         for r in ba_runs.values():
             errs3.append(r["largest"][1])
         timing3 = ba_runs["slice1_relaxed"]["largest"][2:5]
+        trial = _trial_phase(torch, problems, card)
 
         launches5, err5, launches5_k3, res5 = _slice5(torch, paths, f_true,
                                                       tmp, card)
@@ -2806,8 +3194,8 @@ def main():
 
         _sten_cpu_vs_card(torch, tmp, card)
 
-    # no single PyTorch call computes a min cut or the block-sparse
-    # normal-equation sums, so library_ms is null for all three
+    # no single PyTorch call computes a min cut, the block-sparse
+    # normal-equation sums or an LM trial, so library_ms is null for all
     print(json.dumps({"kernels": [
         {"name": "grid_mincut",
          "route": "cuda",
@@ -2891,7 +3279,36 @@ def main():
          "plain_ms": timing3[1],
          "bound_ms": timing3[2][0],
          "bound_by": timing3[2][1],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None},
+        # kernels 4 and 5 replace no TPU kernel: the JAX package's LM
+        # trial body; launches on each path of the run (replays counted,
+        # each path checked against its trials executed:
+        # _check_trial_path), times (CUDA events) and bounds at the
+        # largest bucket of slice 1's schedule (the benchmark cell's),
+        # from the trial phase
+        *({"name": k,
+           "route": "cuda",
+           "source": sources["trial"],
+           "replaces": None,
+           "launches": sum(v[i] for v in _TRIAL_PATHS.values()),
+           "launches_by_path": {p: v[i] for p, v in _TRIAL_PATHS.items()},
+           "max_rel_err": trial[pre + "_max_rel"],
+           "ms": trial[pre + "_ms"],
+           "plain_ms": trial[pre + "_plain_ms"],
+           "bound_ms": trial[pre + "_bound_ms"],
+           "bound_by": trial[pre + "_bound_by"],
+           "library_ms": None}
+          for i, k, pre in ((0, "trial_streams", "k4"),
+                            (1, "solve_accept", "k5"))),
+        {"name": "lm_trial",
+         "route": "cuda graph",
+         "graph_ops": trial["fused"]["graph_ops"],
+         "us_per_trial": trial["fused"]["us_per_trial"],
+         "device_ms_per_trial": trial["fused"]["device_ms_per_trial"],
+         "lm_trial_graph_ops": trial["lm_trial"]["graph_ops"],
+         "lm_trial_us_per_trial": trial["lm_trial"]["us_per_trial"],
+         "lm_trial_device_ms_per_trial":
+             trial["lm_trial"]["device_ms_per_trial"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,9 +12,10 @@ Panorama(paths, device="cuda").stitch(Config(cut=True)).get_preview(),
 with SPT_SYNC_STAGES=1 (asynchronous work charged to the stage that
 queued it). It prints the card's name and power limit, one JSON line
 with the seconds its imports took, then one JSON line per stitch: its
-wall, the stage walls, the LM's runs, trials and trials executed, the
-CUDA graphs captured and the seconds spent capturing them, the launches
-of kernel 1 (the min-cut) and kernel 3 (the BA assembly), and sha256
+wall, the stage walls, the LM's runs, trials, trials executed and those
+through kernels 4 and 5, the CUDA graphs captured and the seconds spent
+capturing them, the launches of kernel 1 (the min-cut), kernel 3 (the BA
+assembly) and kernels 4 and 5 (the LM trial's), and sha256
 digests of the cameras (K, rotations) and of the preview's bytes, so
 that two stitches, two processes or two commits can be held equal. With
 --profile each stitch runs under torch.profiler (CPU and CUDA
@@ -229,7 +230,7 @@ def stitch_in_process(views, profile, cprofile=False, trial_kernels=False):
     t0 = time.perf_counter()
     from simplepanorama_tpu_torch import Config, Panorama
     from simplepanorama_tpu_torch import stitch
-    from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+    from simplepanorama_tpu_torch.ops import ba_kernel, ba_trial, maxflow
     from simplepanorama_tpu_torch.utils.timing import global_timer
     t_pkg = time.perf_counter() - t0
     if not torch.cuda.is_available():
@@ -245,7 +246,7 @@ def stitch_in_process(views, profile, cprofile=False, trial_kernels=False):
 
     def counted(*a, **kw):
         cams, c = chunk(*a, **kw)
-        for k in ("runs", "executed", "graphs", "capture_s"):
+        for k in ("runs", "executed", "fused", "graphs", "capture_s"):
             lm[k] = lm.get(k, 0) + getattr(c, k)
         lm["trials"] = lm.get("trials", 0) + int(c.trials)
         return cams, c
@@ -258,6 +259,8 @@ def stitch_in_process(views, profile, cprofile=False, trial_kernels=False):
         lm.clear()
         maxflow.grid_mincut.launches = 0
         ba_kernel.assemble_streams.launches = 0
+        ba_trial.trial_streams.launches = 0
+        ba_trial.solve_accept.launches = 0
         prof = None
         if profile:
             from torch.profiler import ProfilerActivity
@@ -278,7 +281,9 @@ def stitch_in_process(views, profile, cprofile=False, trial_kernels=False):
                "lm": dict(lm),
                "launches": {"grid_mincut": maxflow.grid_mincut.launches,
                             "assemble_streams":
-                                ba_kernel.assemble_streams.launches},
+                                ba_kernel.assemble_streams.launches,
+                            "trial_streams": ba_trial.trial_streams.launches,
+                            "solve_accept": ba_trial.solve_accept.launches},
                "cameras": _digest(np.asarray(pano.result.K),
                                   np.asarray(pano.result.rot)),
                "preview": _digest(np.ascontiguousarray(preview)),

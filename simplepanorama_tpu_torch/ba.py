@@ -15,13 +15,25 @@ One LM trial is a function of device tensors (``lm_trial``, the JAX
 package's while_loop body): the chain rule, the camera system summed by
 ops/ba_kernel.assemble_streams (kernel 3 on the card, its plain version on
 the CPU), the solve, the back-substitution by gathers and the accept test,
-applied with torch.where alone. The host reads the termination flag once
-every READ_EVERY trials (``lm_run_eager``); on the card ``LMProgram``
-replays the trial as a CUDA graph between those reads, its all-reduces
-included when the matches are split across ranks, and ``program`` keeps
-each single-card bucket's program for the process, as the JAX package's
-jit cache keeps its compiled LM (``release_programs`` drops them), lent
-to one thread at a time. The
+applied with torch.where alone. ``lm_step`` is that trial as two halves
+around the assembly, ``trial_streams_ref`` and ``solve_accept_ref``: the
+plain versions of kernels 4 and 5 (ops/ba_trial). The host reads the
+termination flag once every READ_EVERY trials (``lm_run_eager``). Where
+the trial runs:
+
+  * a single-card LMProgram on the card (every stitch's BA, ``fused``
+    True, the default; ``LMProgram.trial_kernels``): ``fused_trial``,
+    kernels 4, 3 and 5, three nodes of the CUDA graph the program
+    captures and replays between reads (a fourth, the pair tables, for
+    a bucket of more than ~480 pairs);
+  * a sharded LMProgram (``group``, parallel.dist_ba): ``lm_step``
+    captured, its two all-reduces between the assembly and the solve and
+    between the trial and its error;
+  * ``fused=False`` and the CPU: ``lm_step``, eagerly.
+
+``program`` keeps each single-card bucket's program for the process, as
+the JAX package's jit cache keeps its compiled LM (``release_programs``
+drops them), lent to one thread at a time. The
 per-pair H chain comes from vmap over the realized camera pairs and its
 Jacobian is written out by hand (``_pair_H_jac_batch``: the tangents of
 the same operations, forward-mode AD's result with no AD and no
@@ -45,7 +57,7 @@ from torch.func import vmap
 
 from simplepanorama_tpu_torch.geometry.rotation import (rodrigues,
                                                         rodrigues_jac)
-from simplepanorama_tpu_torch.ops import ba_kernel
+from simplepanorama_tpu_torch.ops import ba_kernel, ba_trial
 from simplepanorama_tpu_torch.utils.device import (CAPTURE_LOCK,
                                                    cusolver_linalg)
 from simplepanorama_tpu_torch.utils.nvcc import count_launches
@@ -458,12 +470,12 @@ def _system(sums, aug, lam, cam_active, fast: bool):
     return _mask_inactive(S, rhs, cam_active)
 
 
-def _back_substitute(Ai, Aj, B, eB, Vinv, da, data: BAData):
+def _back_substitute(Ai, Aj, bp, eB, Vinv, da, data: BAData):
     """db = V^-1 (e_B - W^T da) without the dense W (M, 6N, 2): W_m has
-    non-zero rows only at the blocks of mi and mj, W_m = J_m^T B23[m],
-    so W_m^T da takes the two 6-row blocks Ai23[m]^T B23[m] and
-    Aj23[m]^T B23[m] and two gathers, da[mi] and da[mj] (an id outside
-    the cameras adds nothing)."""
+    non-zero rows only at the blocks of mi and mj, W_m = J_m^T B23[m]
+    (``bp``, the projected rows of B), so W_m^T da takes the two 6-row
+    blocks Ai23[m]^T B23[m] and Aj23[m]^T B23[m] and two gathers, da[mi]
+    and da[mj] (an id outside the cameras adds nothing)."""
     N = da.shape[0] // 6
     d6 = da.reshape(N, 6)
 
@@ -471,8 +483,8 @@ def _back_substitute(Ai, Aj, B, eB, Vinv, da, data: BAData):
         g = d6.index_select(0, torch.clamp(ids, 0, N - 1))
         g = torch.where(((ids >= 0) & (ids < N))[:, None], g,
                         torch.zeros_like(g))
-        W = (A[:, 0, :, None] * B[:, 2, None, :]
-             + A[:, 1, :, None] * B[:, 3, None, :])
+        W = (A[:, 0, :, None] * bp[:, 0, None, :]
+             + A[:, 1, :, None] * bp[:, 1, None, :])
         return W * g[:, :, None]
     wtd = torch.cat([block(Ai, data.mi), block(Aj, data.mj)], 1).sum(1)
     return (Vinv * (eB - wtd)[:, None, :]).sum(2)
@@ -602,20 +614,33 @@ def lm_trial(st: LMState, pb: LMProblem, fast: bool) -> LMState:
     return lm_step(st, pb, fast)[0]
 
 
-def lm_step(st: LMState, pb: LMProblem, fast: bool):
-    """lm_trial, also returning the trial's error (over every rank's
-    matches) whether or not the trial was accepted."""
+def trial_streams_ref(st: LMState, pb: LMProblem,
+                      fast: bool) -> ba_trial.TrialStreams:
+    """The first half of the trial, before the assembly: the streams of
+    ops/ba_kernel.assemble_streams, then e_B and V^-1 for the
+    back-substitution (None in Lowe's objective). The plain version of
+    kernel 4 (ops/ba_trial.trial_streams)."""
     cams = st.cams
-    n = cams.focal.shape[0]
     focal_last = cams.focal.index_select(0, pb.vaug_idx.reshape(1))[0]
-    r, Ai, Aj, B, Vinv, eB, floats = _streams(
-        cams, pb.data, pb.active_m, st.lam, focal_last, fast)
-    sums = _camera_sums(floats, pb, n, fast)
+    *_, Vinv, eB, floats = _streams(cams, pb.data, pb.active_m, st.lam,
+                                    focal_last, fast)
+    return ba_trial.TrialStreams(*floats, eB=eB, vinv=Vinv)
+
+
+def solve_accept_ref(st: LMState, pb: LMProblem, fast: bool,
+                     ts: ba_trial.TrialStreams, sums):
+    """The second half of the trial, from the camera system ``sums`` (U,
+    +J^T r, YW, yeb) and the streams ``ts``: the augmented and masked
+    system, the preconditioned solve, the back-substitution of b, the
+    trial error over every rank's matches and the accept test. Returns
+    (the new state, the trial's error). The plain version of kernel 5
+    (ops/ba_trial.solve_accept)."""
+    cams = st.cams
     S, rhs = _system(sums, _aug_scales(cams.focal), st.lam, pb.cam_active,
                      fast)
     da = _solve_preconditioned(S, rhs)
-    db = None if fast else _back_substitute(Ai, Aj, B, eB, Vinv, da,
-                                            pb.data)
+    db = None if fast else _back_substitute(ts.ai, ts.aj, ts.bp, ts.eB,
+                                            ts.vinv, da, pb.data)
     trial = _apply_delta(cams, da, db, pb.cam_active, pb.active_m)
     err_new = _error(trial, pb, fast)
     live = _live(st, pb.max_iter)
@@ -629,6 +654,29 @@ def lm_step(st: LMState, pb: LMProblem, fast: bool):
         strikes=torch.where(live, torch.where(ok, torch.zeros_like(
             st.strikes), st.strikes + 1), st.strikes),
         n_acc=st.n_acc + ok.to(torch.int64)), err_new
+
+
+def lm_step(st: LMState, pb: LMProblem, fast: bool):
+    """lm_trial, also returning the trial's error (over every rank's
+    matches) whether or not the trial was accepted: trial_streams_ref,
+    the camera system (kernel 3 and, with a group, its all-reduce), then
+    solve_accept_ref."""
+    ts = trial_streams_ref(st, pb, fast)
+    sums = _camera_sums(ts[:9], pb, st.cams.focal.shape[0], fast)
+    return solve_accept_ref(st, pb, fast, ts, sums)
+
+
+def fused_trial(st: LMState, pb: LMProblem, fast: bool, live: torch.Tensor,
+                tw: Optional[ba_trial.Workspace] = None) -> None:
+    """One single-card trial written into ``st``'s tensors and the
+    termination flag ``live`` in place: kernel 4, kernel 3, kernel 5 on
+    the card (``tw``: their workspace), their plain versions on the CPU,
+    where it equals lm_step. No host sync."""
+    ts = ba_trial.trial_streams(st, pb, fast, tw)
+    sums = ba_kernel.assemble_streams(*ts[:9], pb.mi, pb.mj,
+                                      st.cams.focal.shape[0],
+                                      with_schur=not fast, ws=pb.ws)
+    ba_trial.solve_accept(st, pb, fast, ts, sums, live, tw)
 
 
 @contextlib.contextmanager
@@ -690,11 +738,18 @@ def lm_run(cams: CamState, data: BAData, cam_active: torch.Tensor,
                        max_iter=max_iter)
 
 
+# the kernel wrappers a captured trial may record (LMProgram.per_trial)
+_KERNELS = (ba_kernel.assemble_streams, ba_trial.trial_streams,
+            ba_trial.solve_accept)
+
+
 class LMProgram:
     """LM runs of one capacity bucket (``data`` cropped to its matches,
     ``n_cams`` camera slots, one objective) on the card, with one trial
     captured as a CUDA graph and replayed ``read_every`` times between
-    host reads of the termination flag.
+    host reads of the termination flag. Without a process group the
+    trial is ``fused_trial`` (``trial_kernels``): kernels 4, 3 and 5,
+    three graph nodes, with their workspace ``tw``.
 
     Every value that changes between runs lives in a static device buffer
     written before the run (cameras, b, the active cameras and matches,
@@ -717,8 +772,10 @@ class LMProgram:
     trial issues them eagerly before the capture, so no collective is
     first issued inside it. The termination flag is computed from
     all-reduced values only, so every rank reads the same flag and
-    replays the same number of trials. A capture that fails raises: there
-    is no eager fallback."""
+    replays the same number of trials. Its trial is ``lm_step``, whose
+    all-reduces sit between the assembly and the solve and between the
+    trial and its error. A capture that fails raises: there is no eager
+    fallback."""
 
     def __init__(self, data: BAData, n_cams: int, fast: bool,
                  max_iter: int = 50, read_every: int = READ_EVERY,
@@ -727,9 +784,11 @@ class LMProgram:
         M = data.mi.shape[0]
         self.fast, self.read_every = fast, read_every
         i64 = dict(dtype=torch.int64, device=dev)
-        # the kernel's scratch on the card; elsewhere its plain version
-        ws = ba_kernel.workspace(M, n_cams, dev) if dev.type == "cuda" \
-            else None
+        # the kernels' scratch on the card; elsewhere their plain versions
+        on_card = dev.type == "cuda"
+        ws = ba_kernel.workspace(M, n_cams, dev) if on_card else None
+        self.tw = ba_trial.workspace(M, n_cams, data.pi.shape[0], dev) \
+            if on_card and group is None else None
         self.pb = lm_problem(
             BAData(*(t.clone() for t in data)),
             torch.zeros(n_cams, dtype=torch.bool, device=dev),
@@ -742,7 +801,21 @@ class LMProgram:
         self.live = torch.zeros((), dtype=torch.bool, device=dev)
         self.graph = None
         self.capture_s = 0.0          # host seconds spent capturing
-        self.launches_per_trial = 0   # kernel-3 launches in one trial
+        # launches in one trial of kernels 3, 4 and 5, by wrapper
+        self.per_trial = {}
+
+    @property
+    def trial_kernels(self) -> bool:
+        """Whether the trial is fused_trial (kernels 4, 3 and 5; their
+        plain versions on the CPU): every program without a process
+        group. A sharded program's trial is lm_trial."""
+        return self.pb.group is None
+
+    @property
+    def launches_per_trial(self) -> int:
+        """Kernel-3 launches in one captured trial (0 before the
+        capture)."""
+        return self.per_trial.get(ba_kernel.assemble_streams, 0)
 
     def load_data(self, data: BAData):
         """Copy the match tables of another problem of the same shapes and
@@ -766,6 +839,14 @@ class LMProgram:
         for dst, src in zip(self._tensors(self.st), self._tensors(st)):
             dst.copy_(src)
         self.live.copy_(_live(st, self.pb.max_iter))
+
+    def trial(self):
+        """One trial on the program's buffers, in place: fused_trial, or
+        with a process group lm_trial and a copy into the buffers."""
+        if self.trial_kernels:
+            fused_trial(self.st, self.pb, self.fast, self.live, self.tw)
+        else:
+            self._store(lm_trial(self.st, self.pb, self.fast))
 
     @span("ba.load")
     def _load(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
@@ -801,18 +882,17 @@ class LMProgram:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side), _device_trials(True):
-                self._store(lm_trial(self.st, self.pb, self.fast))
+                self.trial()
             torch.cuda.current_stream().wait_stream(side)
-            before = ba_kernel.assemble_streams.recorded
+            before = {k: k.recorded for k in _KERNELS}
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
                 with _device_trials(True):
-                    self._store(lm_trial(self.st, self.pb, self.fast))
+                    self.trial()
             # the capture records the launches without running them: the
             # replays count them
-            self.launches_per_trial = \
-                ba_kernel.assemble_streams.recorded - before
+            self.per_trial = {k: k.recorded - before[k] for k in _KERNELS}
             self.graph = graph
             self.capture_s = time.perf_counter() - t0
 
@@ -829,8 +909,8 @@ class LMProgram:
         while True:
             for _ in range(self.read_every):
                 self.graph.replay()
-            count_launches(ba_kernel.assemble_streams,
-                           self.read_every * self.launches_per_trial)
+            for k, n in self.per_trial.items():
+                count_launches(k, self.read_every * n)
             executed += self.read_every
             reads += 1
             with span("ba.flag_read"):

@@ -20,8 +20,12 @@
 // Where it runs. The bundle adjustment calls it once per LM trial, inside
 // a CUDA graph, at N = 8 or 16 camera slots and M = 2,048-8,192 matches on
 // the stitches the port is measured on (N = 40, M = 20,480 stays
-// supported). Bound on this card: a match reads 37 four-byte values
-// (148 B) and does ~1 kFLOP, so M = 8,192 reads 1.2 MB (0.36 us of HBM
+// supported). In a single-card trial its neighbours in the graph are
+// csrc/ba_trial.cu's kernels: kernel 4 (trial_streams_kernel) writes the
+// streams it reads, kernel 5 (solve_accept_kernel) reads its sums; in
+// the sharded trial, PyTorch's operations of ba.lm_step and an
+// all-reduce of its sums. Bound on this card: a match reads 37 four-byte
+// values (148 B) and does ~1 kFLOP, so M = 8,192 reads 1.2 MB (0.36 us of HBM
 // time) against 0.1 us of f32 arithmetic: memory-bound on paper, latency-
 // bound in practice. The TPU kernel built dense (512, 6N) J / W / Z tiles
 // and carried the sums in VMEM across a sequential grid; a match touches

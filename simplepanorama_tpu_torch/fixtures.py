@@ -5,7 +5,8 @@
 (W px per 2*pi radians). Consecutive views overlap by hfov - yaw_step, so
 a loop of 360/yaw_step views closes the circle. ``cut_grid`` and
 ``maze_grid`` make seam-style cut graphs for the min-cut solvers, and
-``max_flow_value`` their exact max-flow value.
+``max_flow_value`` their exact max-flow value. ``lm_trial_problem`` makes
+a bundle-adjustment problem for the LM trial's kernels.
 """
 
 from __future__ import annotations
@@ -147,3 +148,69 @@ def max_flow_value(wh: np.ndarray, wv: np.ndarray, excess: np.ndarray,
                     (np.concatenate(rows), np.concatenate(cols))),
                    shape=(n + 2, n + 2))
     return maximum_flow(g, n, n + 1).flow_value / scale
+
+
+def lm_trial_problem(n_cams: int, M: int, seed: int = 0, device="cpu",
+                     inactive: int = 0, outside: bool = False,
+                     idle_camera: bool = False, reach: int = 2):
+    """A bundle-adjustment problem of ``n_cams`` camera slots and ``M``
+    match slots: cameras on a yaw arc (camera 0 at the identity rotation,
+    so its rotation is frozen), focal 500, matches from the BA model
+    H(i, j) = K R_i^T R_j K^-1 plus 0.3 px noise between each camera and
+    its next ``reach`` (both directions; the yaw step at most 0.6 /
+    ``reach`` rad), filling 7/8 of the slots. The last
+    ``inactive`` cameras are inactive (their matches too); ``outside``
+    names camera ``n_cams``, outside the table, instead of the last
+    camera as the first camera of every other match of that camera (the
+    pair tables clamp it back to the last camera, as torch.clamp does;
+    the camera system and the back-substitution leave that side out);
+    ``idle_camera`` leaves the last active camera with no match, so every
+    trial's system is singular. Returns (ba.CamState,
+    the start: focal 5% high, rotations 0.02 rad off, b = t; ba.BAData
+    with its pair tables; cam_active (bool))."""
+    import torch
+    from simplepanorama_tpu_torch import ba
+    from simplepanorama_tpu_torch.geometry.rotation import rodrigues
+    rng = np.random.default_rng(seed)
+    f = 500.0
+    n_live = n_cams - inactive
+    step = min(0.3, 2 * math.pi / n_cams, 0.6 / reach)
+    rv = np.array([[0.01 * i, step * i, -0.005 * i] for i in range(n_cams)],
+                  np.float32)
+    R = [rodrigues(torch.from_numpy(v)).double().numpy() for v in rv]
+    K = np.diag([f, f, 1.0])
+    n_matched = n_live - (1 if idle_camera else 0)
+    pairs = [(i, j) for i in range(n_cams) for j in range(n_cams)
+             if 0 < abs(i - j) <= reach and i < n_matched + inactive
+             and j < n_matched + inactive
+             and (i < n_matched) == (j < n_matched)]
+    n_valid = M * 7 // 8
+    per = np.bincount(rng.integers(0, len(pairs), n_valid),
+                      minlength=len(pairs))
+    mi, mj, qs, ts = [], [], [], []
+    for (i, j), k in zip(pairs, per):
+        H = K @ R[i].T @ R[j] @ np.linalg.inv(K)
+        t = rng.uniform(-200, 200, (k, 2))
+        th = np.concatenate([t, np.ones((k, 1))], 1) @ H.T
+        qs.append(th[:, :2] / th[:, 2:3] + rng.normal(0, 0.3, (k, 2)))
+        ts.append(t)
+        mi += [i] * k
+        mj += [j] * k
+    mi = np.array(mi + [0] * (M - n_valid), np.int64)
+    mj = np.array(mj + [0] * (M - n_valid), np.int64)
+    if outside:
+        last = np.flatnonzero(mi[:n_valid] == n_cams - 1)
+        mi[last[::2]] = n_cams
+    pad = np.zeros((M - n_valid, 2))
+    T = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+    data = ba.with_pair_tables(ba.BAData(
+        mi=T(mi), mj=T(mj),
+        q=T(np.concatenate(qs + [pad]), torch.float32),
+        t=T(np.concatenate(ts + [pad]), torch.float32),
+        m_valid=T(np.arange(M) < n_valid), pi=None, pj=None, mp=None))
+    rot0 = rv + rng.normal(0, 0.02, rv.shape).astype(np.float32)
+    rot0[0] = 0.0
+    cams = ba.CamState(T(np.full(n_cams, f * 1.05), torch.float32),
+                       T(np.zeros((n_cams, 2)), torch.float32),
+                       T(rot0), data.t.clone())
+    return cams, data, T(np.arange(n_cams) < n_live)

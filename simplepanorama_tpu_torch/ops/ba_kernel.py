@@ -45,7 +45,8 @@ def assemble_streams_ref(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
     the matches run in float64 and are rounded once, so the result does
     not depend on a summation order (the gradient e_A cancels strongly
     near a minimum, where a float32 sum in one order or another moves an
-    LM step by ~1e-5)."""
+    LM step by ~1e-5). Float64 streams give float64 sums (a float64 LM
+    run, the reference the card's float32 runs are held to)."""
     sN = 6 * n_cams
     cam = torch.arange(sN, device=ai.device) // 6
     # an id outside [0, N) matches no column: the match adds nothing there
@@ -58,7 +59,7 @@ def assemble_streams_ref(ai, aj, bp, r2, l00, l10, l11, g0, g1, mi, mj,
 
     def sums(a0, b0, a1, b1):   # a0^T b0 + a1^T b1 over the matches
         d = lambda x: x.to(torch.float64)
-        return (d(a0).T @ d(b0) + d(a1).T @ d(b1)).to(torch.float32)
+        return (d(a0).T @ d(b0) + d(a1).T @ d(b1)).to(ai.dtype)
     U = sums(jr0, jr0, jr1, jr1)
     eA = sums(jr0, r2[:, 0], jr1, r2[:, 1])
     if not with_schur:

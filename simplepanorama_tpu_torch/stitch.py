@@ -15,8 +15,10 @@ at a cropped capacity bucket (matches rounded to 2048, cameras to 8) —
 the JAX package's bucket plan. On the card each bucket's LM trial is one
 CUDA graph (ba.LMProgram), replayed with a host read of the termination
 flag every few trials: the counterpart of the JAX package's one compiled
-program per chunk. As the JAX package's jit cache keeps that program for
-the process, ba.program keeps the graph: a later stitch whose bucket has
+program per chunk; on one card a trial is three kernels
+(ba.fused_trial).
+As the JAX package's jit cache keeps that program for the process,
+ba.program keeps the graph: a later stitch whose bucket has
 the same shapes loads its match tables into it and replays, capturing
 nothing (ba.release_programs() drops them all); a chunk holds its
 program's lock, so stitches in several threads stay apart. In a world
@@ -197,6 +199,8 @@ class LMCounts(NamedTuple):
     accepted: torch.Tensor    # () accepted steps
     executed: int             # trials executed: the runs' trials, the
     #                           no-op ones after a run ended, the warm-up
+    fused: int                # of those, trials run by kernels 4 and 5
+    #                           (ba.fused_trial, a single-card program)
     reads: int                # host reads of the termination flag
     graphs: int               # trials captured as CUDA graphs in this
     #                           chunk (0 when its program was kept)
@@ -219,7 +223,7 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
     dev = cams_c.focal.device
     trials = torch.zeros((), dtype=torch.int64, device=dev)
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
-    executed = reads = graphs = 0
+    executed = reads = graphs = fused = 0
     capture_s = 0.0
     error = torch.zeros((), dtype=torch.float32, device=dev)
     for l in range(lo, hi):
@@ -231,6 +235,7 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
             if fresh:
                 graphs += 1
                 capture_s += program.capture_s
+            fused += n if program.trial_kernels else 0
         else:
             res, n, r = ba.lm_run_eager(cams_c, data_c, active_c, lambda0,
                                         fast=fast, vaug_idx=int(vaug[l]),
@@ -242,7 +247,8 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
         executed += n
         reads += r
     return cams_c, LMCounts(runs=hi - lo, trials=trials, accepted=accepted,
-                            executed=executed, reads=reads, graphs=graphs,
+                            executed=executed, fused=fused, reads=reads,
+                            graphs=graphs,
                             capture_s=capture_s, error=error)
 
 
@@ -256,7 +262,8 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
     (h, w) of the global image list, ``focal`` the scene estimate.
     ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
     each chunk of the schedule as its bucket's CUDA graph, replayed, on
-    the card: ba.program's kept LMProgram of the bucket's shapes, held by
+    the card (kernels 4, 3 and 5, ba.fused_trial): ba.program's kept
+    LMProgram of the bucket's shapes, held by
     this thread for the chunk, loaded with this problem's match tables,
     captured only when the process has none yet
     (a chunk's LMCounts count the captures it made; the chunks' trials
@@ -399,13 +406,15 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
 
 def _count_trials(chunk_counts: List[LMCounts]) -> None:
     """Add the chunks' trials to the counters ``ba.trials_executed``
-    (executed, no-op and warm-up trials included) and ``ba.lm_trials``
-    (the runs' own trials): one read of the device's trial counts, after
-    the readback has synced."""
+    (executed, no-op and warm-up trials included), ``ba.fused_trials``
+    (those run by kernels 4 and 5: every one on a single card) and
+    ``ba.lm_trials`` (the runs' own trials): one read of the device's
+    trial counts, after the readback has synced."""
     if not chunk_counts:
         return
     timer = global_timer()
     timer.add("ba.trials_executed", sum(c.executed for c in chunk_counts))
+    timer.add("ba.fused_trials", sum(c.fused for c in chunk_counts))
     timer.add("ba.lm_trials",
               int(torch.stack([c.trials for c in chunk_counts]).sum()))
 

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card; they skip without one.
 
-The hand-written kernels (both min-cuts and the BA normal-equation
-assembly) against their plain PyTorch versions, and the port on the card
+The hand-written kernels (both min-cuts, the BA normal-equation
+assembly and the LM trial's kernels 4 and 5) against their plain PyTorch
+versions, and the port on the card
 (the stereographic remap, a whole render) against the port on the
 CPU. This file imports no
 JAX, so it runs on a machine that has only the port's dependencies:
@@ -16,9 +17,10 @@ import torch
 from simplepanorama_tpu_torch import Config, Panorama
 from simplepanorama_tpu_torch.adjacency import torch_pair_draws
 from simplepanorama_tpu_torch.fixtures import (cut_grid, fkh360_views,
+                                               lm_trial_problem,
                                                max_flow_value, maze_grid)
 from simplepanorama_tpu_torch.stitch import StitchResult
-from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
+from simplepanorama_tpu_torch.ops import ba_kernel, ba_trial, maxflow
 from simplepanorama_tpu_torch.render import graphcut
 from simplepanorama_tpu_torch.render.compose import ComposeState
 
@@ -593,6 +595,305 @@ def test_ba_kernel_matches_plain_version(cuda, N, M, seed, with_schur):
         assert not got[2].any() and not got[3].any()
 
 
+def _trial_problem(N, M, fast, seed=5, reach=2):
+    """lm_trial_problem on the card with an inactive camera (from N = 16)
+    and camera ids outside the table: (ba.LMState at the start, its
+    ba.LMProblem with kernel 3's workspace, kernels 4 and 5's)."""
+    from simplepanorama_tpu_torch import ba
+    cams, data, active = lm_trial_problem(N, M, seed=seed, device="cuda",
+                                           inactive=N // 16, outside=True,
+                                           reach=reach)
+    pb = ba.lm_problem(data, active, max_iter=50,
+                       ws=ba_kernel.workspace(M, N, "cuda"))
+    return (ba.lm_init(cams, pb, 0.05, fast), pb,
+            ba_trial.workspace(M, N, data.pi.shape[0], "cuda"))
+
+
+def _copy_state(st):
+    from simplepanorama_tpu_torch import ba
+    return ba.LMState(ba.CamState(*(t.clone() for t in st.cams)),
+                      *(t.clone() for t in st[1:]))
+
+
+def _close(got, want, rel, what):
+    """max |got - want| within ``rel`` of max(max |want|, 1)."""
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    assert err <= rel * scale, (what, err, scale)
+
+
+def _step_close(got, want, start, rel, what):
+    """max |got - want| within ``rel`` of the trial's step max |want -
+    start|, plus 4 float32 roundings of max |want| (the trial value is
+    start + step, rounded)."""
+    step = float((want - start).abs().max())
+    err = float((got - want).abs().max())
+    bound = rel * step + 4 * 2.0 ** -24 * float(want.abs().max())
+    assert err <= bound, (what, err, step, bound)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("N,M,reach,route", [
+    (8, 2048, 2, "shared"), (16, 6144, 2, "shared"),
+    (40, 20480, 2, "shared"), (48, 4096, 2, "global system"),
+    (40, 20480, 8, "global tables")])
+def test_trial_kernels_match_plain_versions(cuda, N, M, reach, route, fast):
+    """Kernel 4 (ops/ba_trial.trial_streams) against
+    ba.trial_streams_ref from the start of a problem with an inactive
+    camera and ids outside the camera table: every stream within 1e-4
+    of its largest entry (the chain rule's products in float32, sin and
+    cos of the card's libm; the residual rows, a difference of ~200 px
+    terms, read 8e-6 in a CPU run of the kernel's arithmetic). Kernel 5
+    (ops/ba_trial.solve_accept) against ba.solve_accept_ref on kernel 4's
+    streams and kernel 3's sums: the same accept decision, counters,
+    lambda and termination flag, the error within 1e-4 relative (the
+    kernel sums in float64, the plain version in float32 over up to
+    20,480 matches: 1.5e-5 apart on the card) and every camera tensor
+    within 1e-4 of the trial's step (_step_close: an LU against
+    cuSOLVER's, on a system of condition ~1e3). One launch of
+    each counted; the two kernels again from the same state give the
+    same bits. N = 8, 16 and 40 camera slots are the LM's buckets, 40
+    the one whose system fills a CTA's shared memory; at 48 the system
+    takes kernel 5's global route, and 40 cameras each matched with
+    their next 8 (~570 pair rows) take kernel 4's."""
+    from simplepanorama_tpu_torch import ba
+    st, pb, tw = _trial_problem(N, M, fast, reach=reach)
+    assert (tw.tables is not None, tw.system is not None) == (
+        route == "global tables", route == "global system")
+    outs = []
+    for _ in range(2):
+        got = _copy_state(st)
+        live = torch.zeros((), dtype=torch.bool, device="cuda")
+        before = (ba_trial.trial_streams.launches,
+                  ba_trial.solve_accept.launches)
+        ts = ba_trial.trial_streams(got, pb, fast, tw)
+        streams = [t.clone() for t in ts]
+        sums = ba_kernel.assemble_streams(*ts[:9], pb.mi, pb.mj, N,
+                                          with_schur=not fast, ws=pb.ws)
+        ba_trial.solve_accept(got, pb, fast, ts, sums, live, tw)
+        torch.cuda.synchronize()
+        assert (ba_trial.trial_streams.launches,
+                ba_trial.solve_accept.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        outs.append((got, live, streams, sums))
+    got, live, streams, sums = outs[0]
+    for a, b in zip((*outs[1][0].cams, *outs[1][0][1:], outs[1][1]),
+                    (*got.cams, *got[1:], live)):
+        assert torch.equal(a, b)
+    want_ts = ba.trial_streams_ref(st, pb, fast)
+    for name, g, w in zip(ba_trial.TrialStreams._fields, streams, want_ts):
+        if w is not None:
+            _close(g, w, 1e-4, name)
+    ts = ba_trial.TrialStreams(*streams)
+    if fast:
+        ts = ts._replace(eB=None, vinv=None)
+    want, err_new = ba.solve_accept_ref(st, pb, fast, ts, sums)
+    for k in ("it", "strikes", "n_acc", "lam"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert bool(live) == bool(ba._live(want, pb.max_iter))
+    assert abs(float(got.err) - float(want.err)) <= 1e-4 * float(want.err)
+    for name, g, w, s0 in zip(ba.CamState._fields, got.cams, want.cams,
+                              st.cams):
+        _step_close(g, w, s0, 1e-4, name)
+
+
+def _scaled_cond(st, pb, fast, sums):
+    """Condition number (float64) of the trial's camera system in the
+    Jacobi scaling of ba._solve_preconditioned."""
+    from simplepanorama_tpu_torch import ba
+    S, _ = ba._system(sums, ba._aug_scales(st.cams.focal), st.lam,
+                      pb.cam_active, fast)
+    S = S.double()
+    d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(S).abs(), min=1e-12))
+    return float(torch.linalg.cond(S * d[:, None] * d[None, :]))
+
+
+def _lm_run_f64(cams, data, active, fast, max_iter, monkeypatch):
+    """ba.lm_run_eager in float64 on the CPU (kernel 3's plain version
+    summing float64 streams): the reference a float32 LM run is held
+    to."""
+    from simplepanorama_tpu_torch import ba
+    d = lambda t: t.cpu().double() if t.is_floating_point() else t.cpu()
+    with monkeypatch.context() as m:
+        m.setattr(ba_kernel, "assemble_streams",
+                  lambda *a, ws=None, **kw:
+                  ba_kernel.assemble_streams_ref(*a, **kw))
+        return ba.lm_run_eager(ba.CamState(*map(d, cams)),
+                               ba.BAData(*map(d, data)), active.cpu(),
+                               0.05, fast=fast, max_iter=max_iter)[0]
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_fused_program_follows_the_eager_lm(cuda, fast, monkeypatch):
+    """On a 16-camera, 6,144-match problem (the cell's largest bucket):
+    30 trials along ba.lm_trial's path, each also run from the same state
+    by ba.fused_trial (kernels 4, 3 and 5). Wherever the trial's
+    Jacobi-scaled system has a condition number c below 1e4 (float64),
+    the two make the same accept decision and their trial errors agree
+    within 1e-4 relative; an accepted trial's cameras and b differ by at
+    most 100 c 2^-24 of the step, the forward error of a float32 LU
+    solve. Above it, as lambda falls and the BA's gauge is held by the
+    augment alone (c reaches 1e7-1e9 below lambda ~ 1e-6), any two
+    float32 LU solves, kernel 5's and cuSOLVER's, give steps that differ
+    in their leading digits, as each does from a float64 solve (PERF.md
+    section 6), and the runs part: those decisions are not compared.
+    At every trial, conditioned or not, kernel 5's camera step (the trial
+    accepted whatever its error) is held to the float64 solve of the
+    system kernels 4 and 3 built: its largest difference, beyond four
+    float32 roundings of the state, at most ten times cuSOLVER's on the
+    same float32 system plus 1e-5 of the step. Then whole runs to the
+    LM's end, up to 300 trials, against the same run in float64
+    (_lm_run_f64): the program's captured run and ba.lm_run_eager each
+    end within 2% of its error (on the card over six problems: the
+    program within 2.3e-5 but one run that stopped on six rejections in
+    a row at 80 trials, 1.15e-2; eager within 1.1e-4), rotations within
+    2e-3 rad and focal, principal point and b within 1e-2 px (4.5e-4 rad
+    and 1e-4 px). A run of wrong steps stops far short of that
+    optimum."""
+    from simplepanorama_tpu_torch import ba
+    cams, data, active = lm_trial_problem(16, 6144, seed=5, device="cuda",
+                                           inactive=1, outside=True)
+    prog = ba.LMProgram(data, 16, fast, max_iter=300)
+    try:
+        pb = ba.lm_problem(data, active, ws=prog.pb.ws)
+        st = ba.lm_init(cams, pb, 0.05, fast)
+        compared, steps = 0, []
+        with ba._device_trials(True):
+            for k in range(30):
+                new, e_eager = ba.lm_step(st, pb, fast)
+                ts = ba.trial_streams_ref(st, pb, fast)
+                cond = _scaled_cond(st, pb, fast, ba._camera_sums(
+                    ts[:9], pb, 16, fast))
+                # the system kernels 4 and 3 build, solved by cuSOLVER
+                # and in float64
+                kts = ba_trial.trial_streams(_copy_state(st), pb, fast,
+                                             prog.tw)
+                S, rhs = ba._system(ba_kernel.assemble_streams(
+                    *kts[:9], pb.mi, pb.mj, 16, with_schur=not fast,
+                    ws=pb.ws), ba._aug_scales(st.cams.focal), st.lam,
+                    pb.cam_active, fast)
+                da_c = ba._solve_preconditioned(S, rhs).double()
+                da_64 = ba._solve_preconditioned(S.double(), rhs.double())
+                got = _copy_state(st)._replace(
+                    err=torch.full_like(st.err, float("inf")))
+                live = torch.zeros((), dtype=torch.bool, device="cuda")
+                ba.fused_trial(got, pb, fast, live, prog.tw)
+                six = lambda c: torch.cat([c.focal[:, None], c.ppal,
+                                           c.rotvec], 1).double()
+                keep = pb.cam_active[:, None].expand(16, 6).clone()
+                keep[:, 3:] &= (st.cams.rotvec.norm(dim=1) >= 1e-6)[:, None]
+                on = lambda x: torch.where(keep, x.reshape(16, 6), 0.0)
+                e_c = float((on(da_c) - on(da_64)).abs().max())
+                e_k = float(((on(six(got.cams) - six(st.cams))
+                              - on(da_64)).abs() - 4 * 2.0 ** -24
+                             * six(st.cams).abs()).clamp(min=0).max())
+                steps.append((k, cond, e_k, e_c,
+                              float(on(da_64).abs().max())))
+                ok_f = bool(torch.isfinite(got.err) & (got.err < st.err))
+                ok_e = bool(new.n_acc > st.n_acc)
+                if cond < 1e4:
+                    compared += 1
+                    assert ok_f == ok_e, (k, cond)
+                    assert abs(float(got.err) - float(e_eager)) <= \
+                        1e-4 * float(e_eager), (k, cond)
+                    if ok_e:
+                        for g, w, s0 in zip(got.cams, new.cams, st.cams):
+                            step = float((w - s0).norm())
+                            diff = float((g - w).norm())
+                            assert diff <= 100 * cond * 2 ** -24 * step \
+                                + 1e-6 * float(w.norm()), (k, cond)
+                st = new
+        assert compared >= 2
+        assert all(e_k <= 10 * e_c + 1e-5 * step
+                   for _, _, e_k, e_c, step in steps), steps
+        res_f = prog.run(cams, active, 0.05)[0]
+        res_e = ba.lm_run_eager(cams, data, active, 0.05, fast=fast,
+                                max_iter=300, ws=prog.pb.ws)[0]
+    finally:
+        prog.close()
+    ref = _lm_run_f64(cams, data, active, fast, 300, monkeypatch)
+    assert int(ref.n_iter) < 300
+    for name, res in (("program", res_f), ("eager", res_e)):
+        assert abs(float(res.error) - float(ref.error)) <= \
+            2e-2 * float(ref.error), (name, float(res.error),
+                                      float(ref.error))
+        for k, g, w in zip(ba.CamState._fields, res.cams, ref.cams):
+            diff = float((g.cpu().double() - w).abs().max())
+            assert diff <= (2e-3 if k == "rotvec" else 1e-2), (name, k,
+                                                                diff)
+
+
+def _replay_ops(graph):
+    """The operations one replay of ``graph`` runs on the card, by name,
+    from torch.profiler (the ranges the host marks left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() != cuda_t}
+    return [e.name() for e in events
+            if e.device_type() == cuda_t and e.name() not in host]
+
+
+def test_fused_trial_graph_holds_three_kernels(cuda, slice1_ba):
+    """The single-card trial captured on slice 1's last bucket records
+    one launch each of kernels 4, 3 and 5 and nothing else of the
+    wrappers; one replay runs three operations on the card by the
+    profiler (at most 6 allowed, memsets included), against ~585 before
+    the trial had kernels of its own."""
+    prog, _, _ = _program(slice1_ba)
+    try:
+        prog._capture()
+        assert prog.per_trial == {ba_kernel.assemble_streams: 1,
+                                  ba_trial.trial_streams: 1,
+                                  ba_trial.solve_accept: 1}
+        ops = _replay_ops(prog.graph)
+        assert 3 <= len(ops) <= 6, ops
+        for k in ("trial_streams_kernel", "assemble_kernel",
+                  "solve_accept_kernel"):
+            assert sum(k + "(" in o for o in ops) == 1, (k, ops)
+    finally:
+        prog.close()
+
+
+@pytest.mark.parametrize("N,reach,nodes", [(40, 2, 3), (48, 2, 3),
+                                             (40, 8, 4)])
+def test_program_takes_kernels_4_5_in_every_bucket(cuda, N, reach, nodes):
+    """A single-card LMProgram replays kernels 4, 3 and 5 in every
+    bucket: 40 camera slots (the system in a CTA's shared memory), 48
+    (288 x 289 floats, no CTA's shared memory holds it: kernel 5's
+    global route) and 40 cameras each matched with their next 8 (~570
+    pair rows: kernel 4's global route, pair_tables_kernel first, a
+    fourth graph node). The captured trial records one launch of each
+    wrapper and runs ``nodes`` operations on the card by the profiler;
+    the run ends below its start's error, kernel 3 launched once per
+    trial executed."""
+    from simplepanorama_tpu_torch import ba
+    cams, data, active = lm_trial_problem(N, 2048, seed=6, device="cuda",
+                                           reach=reach)
+    prog = ba.LMProgram(data, N, False, max_iter=12)
+    try:
+        assert prog.trial_kernels and prog.tw is not None
+        start = float(ba.lm_init(cams, ba.lm_problem(data, active), 0.05,
+                                 False).err)
+        before = ba_kernel.assemble_streams.launches
+        res, executed, _ = prog.run(cams, active, 0.05)
+        torch.cuda.synchronize()
+        assert ba_kernel.assemble_streams.launches - before == executed
+        assert prog.per_trial == {ba_kernel.assemble_streams: 1,
+                                  ba_trial.trial_streams: 1,
+                                  ba_trial.solve_accept: 1}
+        assert float(res.error) < start
+        ops = _replay_ops(prog.graph)
+        assert len(ops) == nodes, ops
+    finally:
+        prog.close()
+
+
 def _recorded_ba(out_dir, size, cfg):
     """The BA problem of a 12-view loop of ``size``-px views, recorded
     from a stitch under ``cfg`` on the card: (comp, adjres, sizes,
@@ -632,10 +933,11 @@ def slice3_ba(tmp_path_factory):
 
 def _run_ba(args, fused, fast=False):
     """bundle_adjust_stitching on the card with the chunk driver's counts
-    summed: (result, {runs, trials, accepted, executed, reads, graphs})."""
+    summed: (result, {runs, trials, accepted, executed, fused, reads,
+    graphs})."""
     from simplepanorama_tpu_torch import stitch
-    counts = dict(runs=0, trials=0, accepted=0, executed=0, reads=0,
-                  graphs=0)
+    counts = dict(runs=0, trials=0, accepted=0, executed=0, fused=0,
+                  reads=0, graphs=0)
     chunk = stitch._lm_chunk
 
     def counted(*a, **kw):
@@ -652,24 +954,53 @@ def _run_ba(args, fused, fast=False):
     return res, counts
 
 
+def _eager_kernel_trials():
+    """A stand-in for ba.lm_trial that runs kernels 4, 3 and 5 eagerly
+    (ba.fused_trial on a copy of the state, the problem's tables copied
+    once into buffers of the layout the kernels take): ba.lm_run_eager
+    then runs the graph's arithmetic without a graph."""
+    from simplepanorama_tpu_torch import ba
+    held = {}
+
+    def trial(st, pb, fast):
+        if held.get("pb") is not pb:
+            data = ba.BAData(*(t.clone() for t in pb.data))
+            held.update(pb=pb, copy=pb._replace(
+                data=data, cam_active=pb.cam_active.clone()),
+                tw=ba_trial.workspace(data.mi.shape[0],
+                                      st.cams.focal.shape[0],
+                                      data.pi.shape[0], "cuda"))
+        new = _copy_state(st)
+        live = torch.zeros((), dtype=torch.bool, device="cuda")
+        ba.fused_trial(new, held["copy"], fast, live, held["tw"])
+        return new
+    return trial
+
+
 @pytest.mark.parametrize("fast", [False, True])
 def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
-                                                        fast):
+                                                        fast, monkeypatch):
     """Slice 1's BA with fused=True captures one CUDA graph per capacity
     bucket of its schedule (a host sync inside the trial would have
     failed the capture: the capturing thread may make none), and
-    launches kernel 3 once per trial executed; against fused=False (the
-    same trial, eager) the same trials and accepted steps, and cameras
-    within 1e-5 relative. The process's kept programs are released
-    first (the recording stitch left its own), so every bucket is
-    captured in this call."""
+    launches kernel 3 once per trial executed, every one of them through
+    kernels 4 and 5; against fused=False with the same trial eager
+    (kernels 4, 3 and 5 launched one by one, _eager_kernel_trials) the
+    same trials and accepted steps, and cameras within 1e-5 relative.
+    fused=False itself (ba.lm_step, eager) captures nothing and runs the
+    same LM runs with no trial through kernels 4 and 5. The process's
+    kept programs are released first (the recording stitch left its
+    own), so every bucket is captured in this call."""
     from simplepanorama_tpu_torch import ba, stitch
     comp, adjres, sizes, focal = slice1_ba
     ba.release_programs()
     before = ba_kernel.assemble_streams.launches
     res_f, c_f = _run_ba(slice1_ba, True, fast)
     launches = ba_kernel.assemble_streams.launches - before
-    res_e, c_e = _run_ba(slice1_ba, False, fast)
+    with monkeypatch.context() as m:
+        m.setattr(ba, "lm_trial", _eager_kernel_trials())
+        res_e, c_e = _run_ba(slice1_ba, False, fast)
+    _, c_s = _run_ba(slice1_ba, False, fast)
     n = len(comp.nodes)
     data, prefix = stitch.build_ba_data(
         comp, adjres, order=stitch.order_nodes_by_connection(
@@ -677,11 +1008,12 @@ def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
     buckets = {(nc, mc) for _, _, nc, mc in stitch._chunk_plan(
         prefix, n, stitch._round_up(n, 8), data.mi.shape[0])}
     assert c_f["graphs"] == len(buckets) and c_e["graphs"] == 0
-    assert launches == c_f["executed"]
+    assert launches == c_f["executed"] == c_f["fused"]
     assert (c_f["runs"], c_f["trials"], c_f["accepted"]) == \
         (c_e["runs"], c_e["trials"], c_e["accepted"])
     np.testing.assert_allclose(res_f.K, res_e.K, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(res_f.rot, res_e.rot, atol=1e-5)
+    assert c_s["graphs"] == c_s["fused"] == 0 and c_s["runs"] == c_f["runs"]
 
 
 def _last_bucket(args):
@@ -721,22 +1053,26 @@ def _program(args, fast=False):
 @pytest.mark.parametrize("fast", [False, True])
 def test_replayed_trial_equals_eager_trial(cuda, slice1_ba, fast):
     """One replay of the captured trial against the same trial run
-    eagerly from the same state on the card (the same kernels in the
-    same order): every state tensor equal, bit for bit. The eager trial
-    runs with host syncs raising (torch.cuda.set_sync_debug_mode)."""
+    eagerly from the same state on the card (ba.fused_trial: the same
+    kernels 4, 3 and 5 in the same order, on a copy of the state): every
+    state tensor and the termination flag equal, bit for bit. The eager
+    trial runs with host syncs raising (torch.cuda.set_sync_debug_mode)."""
     from simplepanorama_tpu_torch import ba
     prog, cams, active = _program(slice1_ba, fast)
     mode = torch.cuda.get_sync_debug_mode()
     try:
         prog._capture()   # runs the state's first trial, then captures
+        want = ba.LMState(ba.CamState(*(t.clone() for t in prog.st.cams)),
+                          *(t.clone() for t in prog.st[1:]))
+        live = prog.live.clone()
         torch.cuda.set_sync_debug_mode("error")
-        with ba._device_trials(True):
-            want = ba.lm_trial(prog.st, prog.pb, fast)
+        ba.fused_trial(want, prog.pb, fast, live, prog.tw)
         torch.cuda.set_sync_debug_mode(mode)
         prog.graph.replay()
         torch.cuda.synchronize()
         for w, g in zip(prog._tensors(want), prog._tensors(prog.st)):
             assert torch.equal(w, g)
+        assert torch.equal(live, prog.live)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
         prog.close()
@@ -1054,6 +1390,19 @@ def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
     assert int(r_e.n_iter) == int(r_s.n_iter) == 12
 
 
+def _lm_trial_program(data, n_cams, fast):
+    """A single-card ba.LMProgram whose captured trial is ba.lm_trial,
+    as a sharded program's is (the trial before kernels 4 and 5)."""
+    from simplepanorama_tpu_torch import ba
+
+    class LmTrialProgram(ba.LMProgram):
+        trial_kernels = False
+
+        def trial(self):
+            self._store(ba.lm_trial(self.st, self.pb, self.fast))
+    return LmTrialProgram(data, n_cams, fast)
+
+
 def _same_run(a, b):
     """Two LMResults equal bit for bit: cameras, error, lambda, trials
     and accepted steps."""
@@ -1068,10 +1417,14 @@ def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
     """ba.LMProgram with the mesh's process group (the sharded trial, its
     two NCCL all_reduces captured in the graph) at world 1, on the last
     bucket of slice 1's BA (relaxed) and of slice 3's (Lowe), against
-    ba.lm_run_eager with the group and ba.LMProgram without one, from
-    the same start: trials, accepted steps, error, lambda and every
-    camera tensor equal bit for bit (a sum over one rank is the
-    identity). Kernel 3 launches once per trial executed; every run
+    ba.lm_run_eager with the group and ba.LMProgram without one (its
+    trial captured as ba.lm_trial, _lm_trial_program: a program without
+    a group replays kernels 4, 3 and 5, held to a float64 run in
+    test_fused_program_follows_the_eager_lm), from the same start:
+    trials, accepted steps, error, lambda and every camera tensor equal
+    bit for bit (a sum over one rank is the identity). The sharded
+    program replays ba.lm_step (kernel 3 recorded in its trial, kernels
+    4 and 5 not). Kernel 3 launches once per trial executed; every run
     reads the termination flag from all-reduced values, so the reads
     agree with the trials; a second run on the same program reuses its
     graph (no warm-up, no capture) and gives the same bits; and
@@ -1086,7 +1439,7 @@ def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
     runs, counts = {}, {}
     sharded = ba.LMProgram(shard_matches(data_c, world1), n_cap, fast,
                            group=world1.group)
-    single = ba.LMProgram(data_c, n_cap, fast)
+    single = _lm_trial_program(data_c, n_cap, fast)
     try:
         for name, run in (
                 ("graph_sharded", lambda: sharded.run(cams, active, 0.05,
@@ -1109,6 +1462,10 @@ def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
     finally:
         sharded.close()
         single.close()
+    assert not sharded.trial_kernels
+    assert sharded.per_trial == {ba_kernel.assemble_streams: 1,
+                                 ba_trial.trial_streams: 0,
+                                 ba_trial.solve_accept: 0}
     for name in ("eager_sharded", "graph_single"):
         assert _same_run(runs["graph_sharded"], runs[name]), name
     trials = int(runs["graph_sharded"].n_iter)

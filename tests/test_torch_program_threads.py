@@ -33,6 +33,7 @@ class _Stub:
     threads' first runs."""
 
     meet = None
+    trial_kernels = True   # a single-card program: kernels 4, 3 and 5
 
     def __init__(self, data, n_cams, fast, max_iter=50, read_every=8):
         self.graph, self.capture_s = None, 0.0
