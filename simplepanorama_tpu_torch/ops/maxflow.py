@@ -431,7 +431,7 @@ _ENTRY = {}
 
 # the solvers' counters, in the order of the C entry points' stats
 _STATS = ("outer", "bfs_rounds", "launches", "host_reads", "push_tiles",
-          "resident", "push_ns", "bfs_ns", "bfs_levels")
+          "resident", "push_ns", "bfs_ns", "bfs_levels", "bfs_tile_runs")
 
 
 def build(kernel: str = "grid_mincut", rebuild: bool = False) -> float:
@@ -499,11 +499,11 @@ def _launch(kernel, cap_h, cap_v, excess0, node, max_outer, inner_iters,
 
 
 def _count_solve(stats: dict) -> None:
-    """Add a card solve's outer rounds and device nanoseconds of pushes
-    and BFSs to the counters ``mincut.outer``, ``mincut.push_ns`` and
-    ``mincut.bfs_ns``."""
+    """Add a card solve's outer rounds, device nanoseconds of pushes and
+    BFSs and BFS tile runs to the counters ``mincut.outer``,
+    ``mincut.push_ns``, ``mincut.bfs_ns`` and ``mincut.bfs_tile_runs``."""
     timer = global_timer()
-    for k in ("outer", "push_ns", "bfs_ns"):
+    for k in ("outer", "push_ns", "bfs_ns", "bfs_tile_runs"):
         timer.add("mincut." + k, stats[k])
 
 
@@ -521,13 +521,15 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
     Returns the (H, W) bool source side. CPU tensors run grid_mincut_ref;
     CUDA tensors launch csrc/mincut.cu and count the launch in
     ``grid_mincut.launches``; ``grid_mincut.last_stats`` holds the counters
-    of the last solve on the card (outer rounds, BFS rounds, launches,
-    host reads, push tiles worked by the tiled route, ``resident``: 1
-    when the grid's tiles stayed in shared memory, 0 when it took the
-    tiled route, the device nanoseconds of the push blocks and of the
-    BFSs, read from the device clock at grid barriers, and the BFS levels
-    run, summed over tiles and rounds); every card solve adds its outer
-    rounds and nanoseconds to the timer's counters (``_count_solve``)."""
+    of the last solve on the card (outer rounds, BFS rounds of the tiled
+    route, launches, host reads, push tiles worked by the tiled route,
+    ``resident``: 1 when the grid's tiles stayed in shared memory, 0 when
+    it took the tiled route, the device nanoseconds of the push blocks
+    and of the BFSs, read from the device clock at grid barriers, the BFS
+    levels run, summed over tiles and runs, and ``bfs_tile_runs``: the
+    runs of the resident tiles' BFSs, which are driven by events and not
+    by rounds); every card solve adds its outer rounds, nanoseconds and
+    tile runs to the timer's counters (``_count_solve``)."""
     _check(cap_h, cap_v, excess0, node)
     H, W = cap_h.shape
     if sweep_iters <= 0:

@@ -117,21 +117,28 @@ def test_tiled_kernel_matches_plain_version(cuda, H, W, seed):
 
 @pytest.mark.parametrize("kernel", ["grid_mincut", "grid_mincut_tiled"])
 def test_solve_adds_its_stats_to_the_counters(cuda, kernel):
-    """One card solve adds its outer rounds and push and BFS nanoseconds
-    (its ``last_stats``) to the timer's ``mincut.*`` counters."""
+    """One card solve adds its outer rounds, push and BFS nanoseconds and
+    BFS tile runs (its ``last_stats``) to the timer's ``mincut.*``
+    counters. Kernel 1's resident BFS, driven by events, counts no rounds
+    and runs every tile at least once a BFS; the tiled route counts
+    rounds and no tile runs."""
     from simplepanorama_tpu_torch.utils.timing import global_timer
     host = cut_grid(200, 328, 3, (40, 90, 82, 148))
     t = [torch.from_numpy(a).to(cuda) for a in host]
     counters = global_timer().counters
-    names = ("mincut.outer", "mincut.push_ns", "mincut.bfs_ns")
-    before = {k: counters.get(k, 0) for k in names}
+    keys = ("outer", "push_ns", "bfs_ns", "bfs_tile_runs")
+    before = {k: counters.get("mincut." + k, 0) for k in keys}
     solver = getattr(maxflow, kernel)
     solver(*t)
     stats = solver.last_stats
     assert stats["outer"] > 0 and stats["push_ns"] > 0 and stats["bfs_ns"] > 0
-    assert {k: counters[k] - before[k] for k in names} == {
-        "mincut.outer": stats["outer"], "mincut.push_ns": stats["push_ns"],
-        "mincut.bfs_ns": stats["bfs_ns"]}
+    assert {k: counters["mincut." + k] - before[k] for k in keys} == {
+        k: stats[k] for k in keys}
+    if kernel == "grid_mincut":
+        assert stats["resident"] == 1 and stats["bfs_rounds"] == 0, stats
+        assert stats["bfs_tile_runs"] >= stats["outer"] + 1, stats
+    else:
+        assert stats["bfs_tile_runs"] == 0 and stats["bfs_rounds"] > 0, stats
 
 
 _BFS_GRIDS = {
@@ -209,6 +216,30 @@ def test_kernels_on_ragged_shapes_and_maze(cuda, kernel, grid):
     assert abs(v_k - exact) <= 1e-3 * max(1.0, exact), (v_k, exact)
     assert (side_k.cpu().numpy() == side_r.cpu().numpy())[host[3]].mean() \
         >= 0.999
+
+
+@pytest.mark.parametrize("grid", sorted(_SOLVE_GRIDS) + ["seam700"])
+def test_resident_bfs_distances_exact(cuda, grid, tmp_path):
+    """Kernel 1's resident BFS, its tiles run as their neighbours'
+    edges drop with no grid barrier between runs, gives exactly
+    _dist_to_sink_scan's distances on every cell, INF included: on the
+    ragged shapes and the maze, and on the seam graph of two 700-px
+    views at the 640x640 block of a 700-px loop (kernel 1's 50x64
+    tiles, what slice 1's and the benchmark's cuts run)."""
+    if grid == "seam700":
+        from chip_smoke import _seam_graph
+        t = _seam_graph(torch, str(tmp_path), 700)
+        assert tuple(t[0].shape) == (640, 640)
+    else:
+        t = [torch.from_numpy(a).to(cuda) for a in _SOLVE_GRIDS[grid]()]
+    n = t[0].numel()
+    _, got, stats = maxflow._launch("grid_mincut", *t, 0, 0, n + 1,
+                                    dist=True)
+    caps, e = maxflow._init_state(*t)
+    want = maxflow._dist_to_sink_scan(caps, e < 0, t[3], n + 1)
+    torch.cuda.synchronize()
+    assert stats["resident"] == 1 and stats["bfs_tile_runs"] >= 1, stats
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 def test_kernel1_takes_tiled_route_when_tiles_do_not_fit(cuda):

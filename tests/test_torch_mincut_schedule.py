@@ -10,6 +10,12 @@ reach the same cut and the same distances.
   every halo cell whose distance dropped enters at its new distance),
   rounds over all tiles until no edge distance drops. Held against
   _dist_to_sink_scan: equal on every cell.
+* Kernel 1's BFS driven by events: each tile runs once on its sinks,
+  then again whenever a neighbour published a lower distance on their
+  shared edge, with the kernel's count of runs owed deciding the end; in
+  event order and in seeded random interleavings where a run reads its
+  halo, other tiles run, and it publishes later. Held against
+  _dist_to_sink_scan: equal on every cell.
 * Kernel 2: four colours of tiles, each tile running k push/relabel
   phases in a row with its halo cells only receiving; cells at height INF
   do not push. Held against grid_mincut_ref and scipy.
@@ -129,6 +135,119 @@ def test_tile_bfs_model_matches_scan(grid, BH, BW):
     want = tmf._dist_to_sink_scan(caps, e < 0, t[3], e.numel() + 1)
     assert torch.equal(got, want)
     assert rounds >= 1
+
+
+def _event_bfs_model(caps, e, node, BH, BW, order="events", n_pass=None):
+    """Kernel 1's event-driven BFS (csrc/mincut.cu, bfs_events) over BH x BW
+    tiles, one state machine a tile as its CTA runs it: ready (a run
+    taken), running (its halo read, its result not yet published),
+    waiting (for a run asked of it, or for no run owed anywhere), done.
+    A run that lowered a distance on a side with a neighbour counts a run
+    owed and asks the neighbour for it, then uncounts its own. ``order``
+    "events" takes the state that was entered first; an int seeds a
+    random choice among the tiles that can move. A tile runs at most
+    ``n_pass`` times. Returns (float distances with _INF, runs a tile)."""
+    H, W = e.shape
+    opn = [c > 0 for c in caps]
+    sink = node & (e < 0)
+    d = torch.where(sink, 0, _BIG).to(torch.int64)
+    pad = torch.full((H + 2, W + 2), _BIG, dtype=torch.int64)
+    nty, ntx = -(-H // BH), -(-W // BW)
+    n = nty * ntx
+    n_pass = n_pass or H * W + 1
+    rng = None if order == "events" else np.random.default_rng(order)
+    owed, asked, taken = n, [0] * n, [1] * n
+    state, since = ["ready"] * n, list(range(n))
+    runs, seen, result = [0] * n, {}, {}
+
+    def box(t):
+        y0, x0 = (t // ntx) * BH, (t % ntx) * BW
+        return y0, x0, min(y0 + BH, H), min(x0 + BW, W)
+
+    def step(t):
+        nonlocal owed
+        y0, x0, y1, x1 = box(t)
+        sl = (slice(y0, y1), slice(x0, x1))
+        if state[t] == "ready" and runs[t] < n_pass:
+            pad[1:-1, 1:-1] = d
+            halo = pad[y0:y1 + 2, x0:x1 + 2].clone()
+            dt = d[sl].clone()
+            before = dt.clone()
+            _tile_bfs([o[sl] for o in opn], sink[sl], dt, halo,
+                      seen.get(t, torch.full_like(halo, _BIG)), runs[t] == 0)
+            seen[t] = halo
+            runs[t] += 1
+            low = dt < before
+            result[t] = (dt, [bool(low[0].any()), bool(low[-1].any()),
+                              bool(low[:, 0].any()), bool(low[:, -1].any())])
+            state[t] = "running"
+        elif state[t] in ("ready", "running"):
+            dt, sides = result.pop(t, (None, [False] * 4))
+            if dt is not None:
+                d[sl] = dt
+            ty, tx = t // ntx, t % ntx
+            nbs = [t - ntx if ty > 0 else -1, t + ntx if ty + 1 < nty else -1,
+                   t - 1 if tx > 0 else -1, t + 1 if tx + 1 < ntx else -1]
+            ask = [nb for nb, s in zip(nbs, sides) if s and nb >= 0]
+            owed += len(ask)
+            for nb in ask:
+                asked[nb] += 1
+            owed -= taken[t]
+            taken[t] = 0
+            state[t] = "waiting"
+        elif asked[t]:
+            taken[t], asked[t] = asked[t], 0
+            state[t] = "ready"
+        else:
+            state[t] = "done"
+        assert owed == sum(asked) + sum(taken)
+
+    clock = n
+    while True:
+        live = [t for t in range(n) if state[t] != "done" and not (
+            state[t] == "waiting" and not asked[t] and owed)]
+        if not live:
+            break
+        if rng is None:
+            t = min(live, key=lambda u: since[u])
+        else:
+            t = live[rng.integers(len(live))]
+        step(t)
+        since[t] = clock
+        clock += 1
+    assert owed == 0 and all(s == "done" for s in state)
+    return torch.where(d < _BIG, d.to(torch.float32),
+                       torch.full_like(e, _INF)), runs
+
+
+@pytest.mark.parametrize("grid", ["random24x32", "random48x160",
+                                  "maze24x64", "maze40x96"])
+@pytest.mark.parametrize("BH,BW", [(8, 32), (5, 17)])
+@pytest.mark.parametrize("order", ["events", 0, 1, 2])
+def test_event_bfs_model_matches_scan(grid, BH, BW, order):
+    """Kernel 1's BFS without a grid barrier between tile runs (a tile
+    runs on its sinks, then whenever a neighbour's edge distance drops;
+    the count of runs owed ends it) gives exactly _dist_to_sink_scan's
+    distances on every cell, INF included, in event order and in seeded
+    random interleavings of the tiles' reads and publishes, for tiles
+    that divide the grid and tiles that do not; every tile ran."""
+    t, caps, e = _state(_grids()[grid])
+    got, runs = _event_bfs_model(caps, e, t[3], BH, BW, order)
+    want = tmf._dist_to_sink_scan(caps, e < 0, t[3], e.numel() + 1)
+    assert torch.equal(got, want)
+    assert min(runs) >= 1
+
+
+@pytest.mark.parametrize("n_pass", [1, 2])
+def test_event_bfs_model_stops_at_n_pass(n_pass):
+    """With n_pass runs a tile, the event-driven BFS still ends (a run
+    asked beyond them is uncounted unrun), no tile runs more, and the
+    maze's distances, whose waves cross many tiles, are not yet reached."""
+    t, caps, e = _state(_grids()["maze40x96"])
+    got, runs = _event_bfs_model(caps, e, t[3], 8, 32, 0, n_pass=n_pass)
+    want = tmf._dist_to_sink_scan(caps, e < 0, t[3], e.numel() + 1)
+    assert max(runs) == n_pass
+    assert not torch.equal(got, want)
 
 
 @pytest.mark.parametrize("grid", ["random48x160", "maze40x96"])
