@@ -78,9 +78,9 @@ Phases, each printing one line per input:
   dist    the multi-device layer (parallel/) at world 1 over NCCL, in
           this process: the match-sharded LM (lm_run_sharded: one CUDA
           graph a trial with its all-reduces inside, kernel 3 on the
-          rank's matches) against the same LM run eagerly and the
-          single-card graph and eager runs on the BA problems of slices
-          1 and 3, bit for bit; multi_blend_sharded on
+          rank's matches) against the single-card graph of the same
+          trial on the BA problems of slices 1 and 3, bit for bit;
+          multi_blend_sharded on
           slice 2's blocks; the image-split and canvas-split full-res
           schedules against slice 2's single-device render; the
           column-sharded min-cut on slice 1's first seam graph against
@@ -110,13 +110,12 @@ Phases, each printing one line per input:
           bucket's trial a CUDA graph with its all-reduces) against the
           single-card run; with one card a line says it was skipped;
   ba      the BA problems of slice 1 (relaxed) and slice 3 (Lowe) again
-          through stitch.bundle_adjust_stitching, fused=False (eager
-          trials) and fused=True (each bucket's trial a CUDA graph): one
-          eager run, two cold graph runs (kept programs released first),
-          then one warm graph run (no capture, the cold run's bits) and
-          the memory the kept programs hold: walls, LM trials,
-          host reads, graphs, kernel-3 launches, the cameras of the two,
-          the device's busy share (torch.profiler), kernel 3 at each
+          through stitch.bundle_adjust_stitching (each bucket's trial a
+          CUDA graph): two cold runs (kept programs released first),
+          then one warm run (no capture, the cold run's bits) and the
+          memory the kept programs hold: walls, LM trials, host reads,
+          graphs, kernel-3 launches, the cameras of the runs, the
+          device's busy share (torch.profiler), kernel 3 at each
           bucket;
   trial   the LM trial at each bucket of the same two problems: kernels
           4 and 5 against their plain versions, their device ms, the
@@ -855,19 +854,18 @@ def _count_lm(stitch):
         stitch._lm_chunk = chunk
 
 
-def _check_kernel3_path(name, launches, lm, k45, trial_kernels=True):
+def _check_kernel3_path(name, launches, lm, k45):
     """Kernel 3 launched once per trial executed on the path ``name``,
     and kernels 4 and 5 (their launches ``k45``, counted since the
-    path's reset) too, each trial counted in ba.fused_trials where the
-    path counts it (_check_trial_path); none of them where the path's
-    trial is ba.lm_step (``trial_kernels`` False)."""
+    path's reset) too, each trial counted in ba.fused_trials
+    (_check_trial_path)."""
     if launches != lm["trials_executed"] or launches < lm["lm_trials"] \
             or lm["lm_trials"] < 1:
         raise RuntimeError(f"{name}: kernel 3 launched {launches} times for "
                            f"{lm['trials_executed']} trials executed "
                            f"({lm['lm_trials']} LM trials)")
-    _check_trial_path(name, k45, lm["trials_executed"] if trial_kernels
-                      else 0, lm["fused_trials"])
+    _check_trial_path(name, k45, lm["trials_executed"],
+                      lm["fused_trials"])
 
 
 # kernels 4 and 5's launches on each path of the run, by path name:
@@ -1413,9 +1411,9 @@ class _WindowDone(Exception):
 def _busy_share(torch, stitch, run, chunks):
     """The device's busy share over the first ``chunks`` chunks of the BA
     that ``run()`` drives: torch.profiler (device activity only) on from
-    the first chunk's start to the end of chunk ``chunks`` (a window,
-    because the profiler's post-processing of a whole eager BA, ~300k
-    kernels and their host ops, takes minutes); the BA stops there.
+    the first chunk's start to the end of chunk ``chunks`` (a window of
+    the schedule's first chunks, its first capture in it); the BA stops
+    there.
     Returns (device seconds in CUDA kernels and copies, window seconds);
     device seconds None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1449,121 +1447,70 @@ def _busy_share(torch, stitch, run, chunks):
     return (us / 1e6 if us > 0 else None), window["t1"] - window["t0"]
 
 
-# chunks of the schedule in the profiled window of the BA's busy share,
-# graph and eager: a fifth of a 12-view schedule's, with its first
-# capture for the graphs; the eager window is one chunk, since the
-# profiler's processing of the eager trials' kernels and launches took
-# ~30 s a problem for two
-BUSY_CHUNKS = {True: 2, False: 1}
-
-
-def _eager_kernel_trials(torch):
-    """A stand-in for ba.lm_trial that runs kernels 4, 3 and 5 eagerly
-    (ba.fused_trial on a copy of the state, the problem's tables copied
-    once into buffers of the layout the kernels take): ba.lm_run_eager
-    then runs the graph's arithmetic without a graph."""
-    from simplepanorama_tpu_torch import ba
-    from simplepanorama_tpu_torch.ops import ba_trial
-    held = {}
-
-    def trial(st, pb, fast):
-        if held.get("pb") is not pb:
-            data = ba.BAData(*(t.clone() for t in pb.data))
-            held.update(pb=pb, copy=pb._replace(
-                data=data, cam_active=pb.cam_active.clone()),
-                tw=ba_trial.workspace(data.mi.shape[0],
-                                      st.cams.focal.shape[0],
-                                      data.pi.shape[0], "cuda"))
-        new = ba.LMState(ba.CamState(*(t.clone() for t in st.cams)),
-                         *(t.clone() for t in st[1:]))
-        live = torch.zeros((), dtype=torch.bool, device="cuda")
-        ba.fused_trial(new, held["copy"], fast, live, held["tw"])
-        return new
-    return trial
+# chunks of the schedule in the profiled window of the BA's busy share:
+# a fifth of a 12-view schedule's, with its first capture
+BUSY_CHUNKS = 2
 
 
 def _ba_phase(torch, problems, card):
     """Each recorded BA problem {name: (comp, adjres, sizes, focal, cfg)}
-    through stitch.bundle_adjust_stitching on the card with fused=False
-    (eager trials) and fused=True (the buckets' CUDA graphs): one eager
-    run, then two graph runs, each cold (the process's kept programs
-    released first, ba.release_programs), then one warm graph run on the
-    programs the cold one left; one line per
-    run, the device memory the kept programs hold (reserved before and
-    after release_programs, and in graphs' private pools), then one run
-    of each with the device's busy share measured over its first chunks
-    (torch.profiler; the graph run cold), and kernel 3 at each capacity
-    bucket of the schedule (the streams of that bucket's last state)
-    against its plain version. The graph runs' trial is kernels 4, 3
-    and 5; the eager run's is ba.lm_step, and before it one more eager
-    run takes kernels 4, 3 and 5 launched one by one
-    (_eager_kernel_trials), the first run the others are held to.
-    Checks: the same LM trials and accepted steps in every run but
-    ba.lm_step's, cameras within 1e-5 relative between them; kernel 3
-    launched once per trial executed, kernels 4 and 5 too in the
-    kernels' runs and never in ba.lm_step's (_check_kernel3_path), which
-    runs the same LM runs; one graph per bucket in a cold run, none in
-    the warm run, whose trials, cameras and error equal the cold run's
-    bit for bit. A host sync inside a trial would fail the graph run's
-    capture. Returns {name: {"launches": kernel-3 launches of the runs,
-    "buckets": the kernel3 results of the largest bucket}}."""
+    through stitch.bundle_adjust_stitching on the card (the buckets'
+    CUDA graphs, kernels 4, 3 and 5): two runs, each cold (the process's
+    kept programs released first, ba.release_programs), then one warm run
+    on the programs the cold one left; one line per run, the device
+    memory the kept programs hold (reserved before and after
+    release_programs, and in graphs' private pools), then one cold run
+    with the device's busy share measured over its first chunks
+    (torch.profiler), and kernel 3 at each capacity bucket of the
+    schedule (the streams of that bucket's last state) against its plain
+    version. Checks: the same LM runs, trials and accepted steps in every
+    run, cameras within 1e-5 relative of the first run's; kernel 3, 4
+    and 5 launched once per trial executed, every one counted in
+    ba.fused_trials (_check_kernel3_path); one graph per bucket in a
+    cold run, none in the warm run, whose trials, cameras and error
+    equal the cold run's bit for bit. A host sync inside a trial would
+    fail the capture. Returns {name: {"launches": kernel-3 launches of
+    the runs, "buckets": the kernel3 results of the largest bucket}}."""
     from simplepanorama_tpu_torch import ba, stitch
     from simplepanorama_tpu_torch.ops import ba_kernel
     out = {}
     for name, (comp, adjres, sizes, focal, cfg) in problems.items():
         ref = graphs = cold = None
         launches = 0
-        walls = {"lm_step": [], False: [], True: [], "warm": []}
+        walls = {"cold": [], "warm": []}
         chunks = []
-        for step, fused, warm in ((True, False, False),
-                                  (False, False, False), (False, True, False),
-                                  (False, True, False), (False, True, True)):
+        for warm in (False, False, True):
             ba_kernel.assemble_streams.launches = 0
             _trial_launches(reset=True)
-            record = fused and not walls[True]    # the first graph run
-            if fused and not warm:
+            record = not walls["cold"]    # the first run
+            if not warm:
                 ba.release_programs()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with _count_lm(stitch) as lm:
                 counted = stitch._lm_chunk
 
-                def recording(cams, active, data, *a, **kw):
-                    res = counted(cams, active, data, *a, **kw)
+                def recording(cams, active, program, *a, **kw):
+                    res = counted(cams, active, program, *a, **kw)
                     if record:
-                        chunks.append((res[0], active.clone(), data))
+                        chunks.append((res[0], active.clone(), ba.BAData(
+                            *(t.clone() for t in program.pb.data))))
                     return res
                 stitch._lm_chunk = recording
-                lm_trial = ba.lm_trial
-                if not fused and not step:
-                    ba.lm_trial = _eager_kernel_trials(torch)
                 try:
                     res = stitch.bundle_adjust_stitching(
-                        comp, adjres, sizes, focal, cfg, device="cuda",
-                        fused=fused)
+                        comp, adjres, sizes, focal, cfg, device="cuda")
                 finally:
                     stitch._lm_chunk = counted
-                    ba.lm_trial = lm_trial
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            walls["warm" if warm else "lm_step" if step else fused].append(
-                wall)
+            walls["warm" if warm else "cold"].append(wall)
             k3 = ba_kernel.assemble_streams.launches
             k45 = _trial_launches()
             launches += k3
-            if step:
-                _line("ba", problem=name, trial="ba.lm_step", fused=False,
-                      fast=bool(cfg.fast), wall_s=wall, **lm,
-                      assemble_streams_launches=k3, device=card)
-                _check_kernel3_path(f"ba {name} lm_step", k3, lm, k45,
-                                    trial_kernels=False)
-                lm_step_runs = lm["lm_runs"]
-                continue
             if ref is None:
-                ref = (res, lm)
-            if fused and graphs is None:
+                ref = cold = (res, lm)
                 graphs = lm["graphs"]
-                cold = (res, lm)
             df = float(np.max(np.abs(res.K[:, 0, 0] / ref[0].K[:, 0, 0]
                                       - 1.0)))
             drot = float(np.max(np.abs(res.rot - ref[0].rot)))
@@ -1588,8 +1535,7 @@ def _ba_phase(torch, problems, card):
                             torch.cuda.memory_reserved()),
                         "private_pools_after_release": _private_pool_bytes(
                             torch)})
-            _line("ba", problem=name, trial="kernels 4, 3, 5",
-                  fused=fused, warm=warm,
+            _line("ba", problem=name, trial="kernels 4, 3, 5", warm=warm,
                   fast=bool(cfg.fast), wall_s=wall, **lm,
                   ms_per_trial=wall * 1e3 / max(1, lm["lm_trials"]),
                   assemble_streams_launches=k3,
@@ -1599,15 +1545,14 @@ def _ba_phase(torch, problems, card):
                   device=card)
             if (lm["lm_runs"], lm["lm_trials"], lm["lm_accepted"]) != (
                     ref[1]["lm_runs"], ref[1]["lm_trials"],
-                    ref[1]["lm_accepted"]) or lm_step_runs != lm["lm_runs"]:
-                raise RuntimeError(f"ba {name}: fused={fused} ran {lm}, the "
-                                   f"first run {ref[1]}, ba.lm_step "
-                                   f"{lm_step_runs} LM runs")
+                    ref[1]["lm_accepted"]):
+                raise RuntimeError(f"ba {name}: warm={warm} ran {lm}, the "
+                                   f"first run {ref[1]}")
             if df > 1e-5 or drot > 1e-5:
-                raise RuntimeError(f"ba {name}: fused={fused} cameras differ "
+                raise RuntimeError(f"ba {name}: warm={warm} cameras differ "
                                    f"from the first run's by {df} (focal) "
                                    f"and {drot} (rotation)")
-            if fused and not warm and lm["graphs"] != graphs:
+            if not warm and lm["graphs"] != graphs:
                 raise RuntimeError(f"ba {name}: a cold graph run captured "
                                    f"{lm['graphs']} graphs, the first "
                                    f"{graphs}")
@@ -1616,23 +1561,16 @@ def _ba_phase(torch, problems, card):
                 raise RuntimeError(f"ba {name}: the warm graph run captured "
                                    f"{lm['graphs']} graphs, equal to the "
                                    f"cold run: {extra['cold_equal_bits']}")
-            # the eager kernels' trials are no program's: ba.fused_trials
-            # counts none of them
-            _check_kernel3_path(f"ba {name} {'graph' if fused else 'eager'}"
-                                f"{' warm' if warm else ''}", k3,
-                                lm if fused else dict(lm, fused_trials=None),
-                                k45)
-        busy = {}
-        for fused in (False, True):
-            ba.release_programs()    # the graph run's window holds a capture
-            dev_s, wall = _busy_share(
-                torch, stitch, lambda: stitch.bundle_adjust_stitching(
-                    comp, adjres, sizes, focal, cfg, device="cuda",
-                    fused=fused), BUSY_CHUNKS[fused])
-            busy["graph" if fused else "eager"] = {
-                "chunks": BUSY_CHUNKS[fused], "device_s": dev_s,
-                "window_s": wall,
-                "busy_share": dev_s / wall if dev_s else None}
+            _check_kernel3_path(f"ba {name} graph{' warm' if warm else ''}",
+                                k3, lm, k45)
+        ba.release_programs()    # the window holds a capture
+        dev_s, wall = _busy_share(
+            torch, stitch, lambda: stitch.bundle_adjust_stitching(
+                comp, adjres, sizes, focal, cfg, device="cuda"),
+            BUSY_CHUNKS)
+        busy = {"graph": {"chunks": BUSY_CHUNKS, "device_s": dev_s,
+                          "window_s": wall,
+                          "busy_share": dev_s / wall if dev_s else None}}
         # kernel 3 at each bucket the graph run used: the bucket's last
         # chunk's final state
         buckets = {}
@@ -1650,8 +1588,7 @@ def _ba_phase(torch, problems, card):
                 streams, n_cap, not cfg.fast, card,
                 active_matches=int(active_m.sum()))
         _line("ba", problem=name, summary=True,
-              lm_step_walls_s=walls["lm_step"],
-              eager_walls_s=walls[False], graph_walls_s=walls[True],
+              graph_walls_s=walls["cold"],
               warm_graph_walls_s=walls["warm"], busy=busy,
               buckets=[list(k) for k in sorted(buckets)], device=card)
         if graphs != len(buckets):
@@ -1772,8 +1709,9 @@ def _trial_phase(torch, problems, card):
         buckets = {}
         chunk = stitch._lm_chunk
 
-        def recording(cams, active, data, *a, **kw):
-            res = chunk(cams, active, data, *a, **kw)
+        def recording(cams, active, program, *a, **kw):
+            res = chunk(cams, active, program, *a, **kw)
+            data = ba.BAData(*(t.clone() for t in program.pb.data))
             buckets[(res[0].focal.shape[0], data.mi.shape[0])] = (
                 res[0], active.clone(), data)
             return res
@@ -1934,15 +1872,13 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
         mesh's group), on each of ``ba_problems`` {name: (cams, data,
         active, fast, lambda)} (the BA problems of slices 1 and 3 as
         _slice3_ba_problem builds them, started from _perturbed cameras,
-        50 trials at most), against the same sharded LM run eagerly
-        (fused=False) and the single-card eager run (ba.lm_run_eager):
-        trials, accepted steps, error and every camera tensor equal bit
-        for bit (an all-reduce over one rank is the identity), and the
-        single-card graph (ba.LMProgram without a group: kernels 4, 3
-        and 5, whose LU parts from cuSOLVER's once lambda is small),
-        which must end below its start's error; kernel 3 launched once
-        per trial executed in each; one line a problem, with each run's
-        wall, capture seconds, trials executed and host reads;
+        50 trials at most), against the single-card graph of the same
+        trial (_lm_trial_program: ba.LMProgram without a group, its trial
+        captured as ba.lm_trial): trials, accepted steps, error and every
+        camera tensor equal bit for bit (an all-reduce over one rank is
+        the identity); kernel 3 launched once per trial executed in
+        each; one line a problem, with each run's wall, capture seconds,
+        trials executed and host reads;
       * tiled_compose.multi_blend_sharded against blending.multi_blend on
         slice 2's blocks (``pano2``): within 0.05 on the 0..255 scale;
       * render/fullres.render_full_dev through the image-split schedule
@@ -1963,7 +1899,6 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
     checking call; the single-card calls in between launch no
     min-cut}."""
     import torch.distributed as dist
-    from simplepanorama_tpu_torch import ba
     from simplepanorama_tpu_torch.ops import ba_kernel, maxflow
     from simplepanorama_tpu_torch.parallel import dist_mincut
     from simplepanorama_tpu_torch.parallel import tiled_compose as tc
@@ -1984,10 +1919,9 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
               wall_s=time.perf_counter() - t0, device=card)
 
         # ---- the match-sharded BA: as one CUDA graph with its
-        # all-reduces (the path), eagerly, and the single-card runs ----
+        # all-reduces (the path), and the single-card graph ----
         for name, (cams, data, active, fast, lam) in ba_problems.items():
             M, n_cams = data.mi.shape[0], cams.focal.shape[0]
-            ws = ba_kernel.workspace(M, n_cams, "cuda")
             cams0 = _perturbed(torch, cams, active)
             runs = {}
 
@@ -2000,18 +1934,13 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
                     program.close()
                 return out, program.capture_s
 
-            def sharded(fused):
+            def sharded():
                 out = lm_run_sharded(cams0, data, active, lam, mesh,
-                                     fast=fast, ws=ws, with_counts=True,
-                                     fused=fused)
+                                     fast=fast, with_counts=True)
                 return out, lm_run_sharded.last_stats["capture_s"]
 
-            for run, fn in (
-                    ("graph_sharded", lambda: sharded(True)),
-                    ("eager_sharded", lambda: sharded(False)),
-                    ("graph_single", single_graph),
-                    ("eager_single", lambda: (ba.lm_run_eager(
-                        cams0, data, active, lam, fast=fast, ws=ws), 0.0))):
+            for run, fn in (("graph_sharded", sharded),
+                            ("graph_single", single_graph)):
                 torch.cuda.synchronize()
                 ba_kernel.assemble_streams.launches = 0
                 _trial_launches(reset=True)
@@ -2035,10 +1964,10 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
             trials = runs["graph_sharded"]["trials"]
             _line("dist", check="lm_run_sharded", problem=name, fast=fast,
                   tolerance="the graphed sharded LM equal, bit for bit, to "
-                  "the eager sharded and the single-card graph (its trial "
-                  "captured as ba.lm_trial) and eager runs in trials, "
-                  "accepted steps, cameras and error; kernel 3 once per "
-                  "trial executed in each, kernels 4 and 5 never",
+                  "the single-card graph (its trial captured as "
+                  "ba.lm_trial) in trials, accepted steps, cameras and "
+                  "error; kernel 3 once per trial executed in each, "
+                  "kernels 4 and 5 never",
                   matches=M, n_cams=n_cams, equal_bits=equal,
                   ms_per_trial_executed={
                       run: 1e3 * (r["wall_s"] - r["capture_s"])
@@ -2053,8 +1982,8 @@ def _dist_phase(torch, card, tmp, ba_problems, pano2, seam_graph):
                             == r["trials_executed"] for r in runs.values())
                     and runs["graph_sharded"]["capture_s"] > 0):
                 raise RuntimeError(f"dist: the sharded LM on {name} differs "
-                                   "between its graphed, eager and "
-                                   "single-card runs at world 1")
+                                   "from the single-card graph at world "
+                                   "1")
 
         # ---- the sharded multiband blend on slice 2's blocks ----
         st = pano2.stitch_params.state
@@ -2425,8 +2354,9 @@ def _thread_counts(stitch):
     counts = {}
     chunk = stitch._lm_chunk
 
-    def counted(cams, active, data, *a, **kw):
-        out, c = chunk(cams, active, data, *a, **kw)
+    def counted(cams, active, program, *a, **kw):
+        out, c = chunk(cams, active, program, *a, **kw)
+        data = program.pb.data
         key = (int(cams.focal.shape[0]), int(data.mi.shape[0]),
                int(data.pi.shape[0]))
         trials, error = int(c.trials), float(c.error)
@@ -3136,7 +3066,7 @@ def main():
         del slice2_single
 
         # ---- the bundle adjustment alone: slice 1's problem (relaxed)
-        # and slice 3's (Lowe), eager trials against CUDA graphs ----
+        # and slice 3's (Lowe), cold and warm CUDA graphs ----
         ba_runs = _ba_phase(torch, problems, card)
         for r in ba_runs.values():
             errs3.append(r["largest"][1])

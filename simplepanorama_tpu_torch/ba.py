@@ -17,23 +17,24 @@ ops/ba_kernel.assemble_streams (kernel 3 on the card, its plain version on
 the CPU), the solve, the back-substitution by gathers and the accept test,
 applied with torch.where alone. ``lm_step`` is that trial as two halves
 around the assembly, ``trial_streams_ref`` and ``solve_accept_ref``: the
-plain versions of kernels 4 and 5 (ops/ba_trial). The host reads the
-termination flag once every READ_EVERY trials (``lm_run_eager``). Where
-the trial runs:
+plain versions of kernels 4 and 5 (ops/ba_trial). Every LM run is an
+``LMProgram``'s, which reads the termination flag once every READ_EVERY
+trials and takes its trial from its device and process group:
 
-  * a single-card LMProgram on the card (every stitch's BA, ``fused``
-    True, the default; ``LMProgram.trial_kernels``): ``fused_trial``,
-    kernels 4, 3 and 5, three nodes of the CUDA graph the program
-    captures and replays between reads (a fourth, the pair tables, for
-    a bucket of more than ~480 pairs);
-  * a sharded LMProgram (``group``, parallel.dist_ba): ``lm_step``
+  * one rank on the card (every stitch's BA; ``LMProgram.trial_kernels``):
+    ``fused_trial``, kernels 4, 3 and 5, three nodes of the CUDA graph
+    the program captures and replays between reads (a fourth, the pair
+    tables, for a bucket of more than ~480 pairs);
+  * a process group on the card (parallel.dist_ba): ``lm_step``
     captured, its two all-reduces between the assembly and the solve and
     between the trial and its error;
-  * ``fused=False`` and the CPU: ``lm_step``, eagerly.
+  * the CPU, with a group or without: ``lm_step``, run between reads
+    (CUDA graphs do not exist there).
 
 ``program`` keeps each single-card bucket's program for the process, as
 the JAX package's jit cache keeps its compiled LM (``release_programs``
-drops them), lent to one thread at a time. The
+drops them), lent to one thread at a time; ``chunk_programs`` lends a
+BA call the program of each chunk. The
 per-pair H chain comes from vmap over the realized camera pairs and its
 Jacobian is written out by hand (``_pair_H_jac_batch``: the tangents of
 the same operations, forward-mode AD's result with no AD and no
@@ -667,11 +668,11 @@ def lm_step(st: LMState, pb: LMProblem, fast: bool):
 
 
 def fused_trial(st: LMState, pb: LMProblem, fast: bool, live: torch.Tensor,
-                tw: Optional[ba_trial.Workspace] = None) -> None:
-    """One single-card trial written into ``st``'s tensors and the
-    termination flag ``live`` in place: kernel 4, kernel 3, kernel 5 on
-    the card (``tw``: their workspace), their plain versions on the CPU,
-    where it equals lm_step. No host sync."""
+                tw: ba_trial.Workspace) -> None:
+    """One single-card trial on the card, written into ``st``'s tensors
+    and the termination flag ``live`` in place: kernel 4, kernel 3,
+    kernel 5 (``tw``: their workspace). No host sync. Its plain version
+    is lm_step."""
     ts = ba_trial.trial_streams(st, pb, fast, tw)
     sums = ba_kernel.assemble_streams(*ts[:9], pb.mi, pb.mj,
                                       st.cams.focal.shape[0],
@@ -679,61 +680,29 @@ def fused_trial(st: LMState, pb: LMProblem, fast: bool, live: torch.Tensor,
     ba_trial.solve_accept(st, pb, fast, ts, sums, live, tw)
 
 
-@contextlib.contextmanager
-def _device_trials(on_card: bool):
-    """Around trials run on the card (eagerly, or captured): the solve on
-    cuSOLVER (utils/device.cusolver_linalg, set for the process). A
-    trial makes no host sync; a capture proves it, since a sync in the
-    capturing thread fails the capture. (No sync-debug mode here: that
-    setting is the process's, and would fail another thread's own
-    syncs.)"""
-    if on_card:
-        cusolver_linalg()
-    yield
-
-
 def _result(st: LMState) -> LMResult:
     return LMResult(cams=st.cams, error=st.err, lam=st.lam,
                     n_accepted=st.n_acc, n_iter=st.it)
 
 
-def lm_run_eager(cams: CamState, data: BAData, cam_active, lambda0,
-                 fast: bool = False, max_iter: int = 50, vaug_idx=None,
-                 read_every: int = READ_EVERY, ws=None, group=None):
-    """The LM run as eager trials, reading the termination flag once every
-    ``read_every`` trials. Returns (LMResult, trials executed, the no-op
-    ones after the end included, host reads). With a process ``group``,
-    ``data`` and ``cams.b`` are this rank's share of the matches and every
-    rank runs the same trials (parallel.dist_ba)."""
-    with span("ba.load"):
-        pb = lm_problem(data, cam_active, vaug_idx, max_iter, ws, group)
-        st = lm_init(cams, pb, lambda0, fast)
-    on_card = cams.focal.device.type == "cuda"
-    reads = 0
-    while True:
-        with _device_trials(on_card):
-            for _ in range(read_every):
-                st = lm_trial(st, pb, fast)
-        reads += 1
-        with span("ba.flag_read"):
-            live = bool(_live(st, pb.max_iter))
-        if not live:
-            return _result(st), reads * read_every, reads
-
-
 def lm_run_impl(cams: CamState, data: BAData, cam_active: torch.Tensor,
                 lambda0, fast: bool = False, max_iter: int = 50,
                 vaug_idx=None) -> LMResult:
-    """Full LM optimization over the active subproblem (eager trials, a
-    host read every READ_EVERY of them). ``fast`` selects the Lowe
-    objective."""
-    return lm_run_eager(cams, data, cam_active, lambda0, fast=fast,
-                        max_iter=max_iter, vaug_idx=vaug_idx)[0]
+    """Full LM optimization over the active subproblem: an LMProgram
+    made for ``data``, run once and closed. Its trial is the one every
+    stitch runs: on the card, kernels 4, 3 and 5 captured as a CUDA graph;
+    on the CPU, lm_step. ``fast`` selects the Lowe objective."""
+    prog = LMProgram(data, cams.focal.shape[0], fast, max_iter)
+    try:
+        return prog.run(cams, cam_active, lambda0, vaug_idx)[0]
+    finally:
+        prog.close()
 
 
 def lm_run(cams: CamState, data: BAData, cam_active: torch.Tensor,
            lambda0, fast: bool = False, max_iter: int = 50) -> LMResult:
-    """Full LM optimization over the active subproblem."""
+    """Full LM optimization over the active subproblem (lm_run_impl: on
+    the card, the stitch's captured trial)."""
     return lm_run_impl(cams, data, cam_active, lambda0, fast=fast,
                        max_iter=max_iter)
 
@@ -745,11 +714,13 @@ _KERNELS = (ba_kernel.assemble_streams, ba_trial.trial_streams,
 
 class LMProgram:
     """LM runs of one capacity bucket (``data`` cropped to its matches,
-    ``n_cams`` camera slots, one objective) on the card, with one trial
-    captured as a CUDA graph and replayed ``read_every`` times between
-    host reads of the termination flag. Without a process group the
-    trial is ``fused_trial`` (``trial_kernels``): kernels 4, 3 and 5,
-    three graph nodes, with their workspace ``tw``.
+    ``n_cams`` camera slots, one objective), reading the termination flag
+    once every READ_EVERY trials. On the card one trial is captured as a
+    CUDA graph and replayed between the reads; on the CPU, where graphs
+    do not exist, ``trial`` runs between them. The trial follows from the
+    device and the process group (``trial_kernels``): one rank on the
+    card runs ``fused_trial``, kernels 4, 3 and 5, three graph nodes, with
+    their workspace ``tw``; a group, or the CPU, runs ``lm_step``.
 
     Every value that changes between runs lives in a static device buffer
     written before the run (cameras, b, the active cameras and matches,
@@ -767,28 +738,35 @@ class LMProgram:
 
     With a process ``group`` (the match-sharded BA, parallel.dist_ba),
     ``data`` and the cameras' b are this rank's share of the matches
-    (parallel.mesh.shard_matches), and the graph holds the trial's two
-    all_reduces: the camera system and the trial error. The warm-up
-    trial issues them eagerly before the capture, so no collective is
-    first issued inside it. The termination flag is computed from
-    all-reduced values only, so every rank reads the same flag and
-    replays the same number of trials. Its trial is ``lm_step``, whose
-    all-reduces sit between the assembly and the solve and between the
-    trial and its error. A capture that fails raises: there is no eager
-    fallback."""
+    (parallel.mesh.shard_matches), and the trial holds its two
+    all_reduces: the camera system, between the assembly and the solve,
+    and the trial error. On the card the graph holds them, and the
+    warm-up trial issues them eagerly before the capture, so no
+    collective is first issued inside it. The termination flag is
+    computed from all-reduced values only, so every rank reads the same
+    flag and runs the same number of trials. A capture that fails
+    raises: there is no eager fallback."""
 
     def __init__(self, data: BAData, n_cams: int, fast: bool,
-                 max_iter: int = 50, read_every: int = READ_EVERY,
-                 group=None):
+                 max_iter: int = 50, group=None):
         dev = data.mi.device
         M = data.mi.shape[0]
-        self.fast, self.read_every = fast, read_every
+        self.fast = fast
+        # trials between two reads of the flag, fixed when the program
+        # is made (the benchmark's card tests read it)
+        self.read_every = READ_EVERY
         i64 = dict(dtype=torch.int64, device=dev)
         # the kernels' scratch on the card; elsewhere their plain versions
         on_card = dev.type == "cuda"
-        ws = ba_kernel.workspace(M, n_cams, dev) if on_card else None
-        self.tw = ba_trial.workspace(M, n_cams, data.pi.shape[0], dev) \
-            if on_card and group is None else None
+        ws = tw = None
+        if on_card:
+            # the solve on cuSOLVER: captured on the device, and one
+            # backend for every thread of the process
+            cusolver_linalg()
+            ws = ba_kernel.workspace(M, n_cams, dev)
+            if group is None:
+                tw = ba_trial.workspace(M, n_cams, data.pi.shape[0], dev)
+        self.tw = tw
         self.pb = lm_problem(
             BAData(*(t.clone() for t in data)),
             torch.zeros(n_cams, dtype=torch.bool, device=dev),
@@ -806,10 +784,15 @@ class LMProgram:
 
     @property
     def trial_kernels(self) -> bool:
-        """Whether the trial is fused_trial (kernels 4, 3 and 5; their
-        plain versions on the CPU): every program without a process
-        group. A sharded program's trial is lm_trial."""
-        return self.pb.group is None
+        """Whether the trial is fused_trial (kernels 4, 3 and 5): one rank
+        on the card. Otherwise it is lm_step."""
+        return self.tw is not None
+
+    @property
+    def graphed(self) -> bool:
+        """Whether ``run`` replays the trial captured as a CUDA graph: on
+        the card."""
+        return self.live.is_cuda
 
     @property
     def launches_per_trial(self) -> int:
@@ -842,11 +825,11 @@ class LMProgram:
 
     def trial(self):
         """One trial on the program's buffers, in place: fused_trial, or
-        with a process group lm_trial and a copy into the buffers."""
+        lm_step and a copy into the buffers (trial_kernels)."""
         if self.trial_kernels:
             fused_trial(self.st, self.pb, self.fast, self.live, self.tw)
         else:
-            self._store(lm_trial(self.st, self.pb, self.fast))
+            self._store(lm_step(self.st, self.pb, self.fast)[0])
 
     @span("ba.load")
     def _load(self, cams: CamState, cam_active, lambda0, vaug_idx=None):
@@ -874,22 +857,18 @@ class LMProgram:
         "thread_local" mode: a CUDA call of another thread, such as a
         stitch in another thread or the NCCL watchdog of a sharded
         trial's process group, neither fails the capture nor joins it."""
-        if self.pb.data.mi.device.type != "cuda":
-            raise ValueError("LMProgram captures on a CUDA device, not "
-                             f"{self.pb.data.mi.device}")
         with CAPTURE_LOCK:
             t0 = time.perf_counter()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), _device_trials(True):
+            with torch.cuda.stream(side):
                 self.trial()
             torch.cuda.current_stream().wait_stream(side)
             before = {k: k.recorded for k in _KERNELS}
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
-                with _device_trials(True):
-                    self.trial()
+                self.trial()
             # the capture records the launches without running them: the
             # replays count them
             self.per_trial = {k: k.recorded - before[k] for k in _KERNELS}
@@ -903,12 +882,13 @@ class LMProgram:
         the end included, host reads)."""
         self._load(cams, cam_active, lambda0, vaug_idx)
         executed = reads = 0
-        if self.graph is None:
+        if self.graph is None and self.graphed:
             self._capture()
             executed += 1
+        step = self.trial if self.graph is None else self.graph.replay
         while True:
             for _ in range(self.read_every):
-                self.graph.replay()
+                step()
             for k, n in self.per_trial.items():
                 count_launches(k, self.read_every * n)
             executed += self.read_every
@@ -945,16 +925,15 @@ _PROGRAM_LOCKS: dict = {}
 _CACHE_LOCK = threading.Lock()
 
 
-def _program_key(data: BAData, n_cams: int, fast: bool, max_iter: int,
-                 read_every: int):
-    """What an LMProgram's graph and run loop are built for: the device,
-    the objective and every shape the graph bakes in."""
+def _program_key(data: BAData, n_cams: int, fast: bool, max_iter: int):
+    """What an LMProgram's graph is built for: the device, the objective
+    and every shape the graph bakes in."""
     return (data.mi.device, bool(fast), n_cams, data.mi.shape[0],
-            data.pi.shape[0], max_iter, read_every)
+            data.pi.shape[0], max_iter)
 
 
 def _kept(data: BAData, n_cams: int, fast: bool, max_iter: int,
-          read_every: int, key) -> LMProgram:
+          key) -> LMProgram:
     """The kept program of ``key`` loaded with ``data``, made when the
     process has none (captured at its first run)."""
     with _CACHE_LOCK:
@@ -963,16 +942,14 @@ def _kept(data: BAData, n_cams: int, fast: bool, max_iter: int,
             if not _PROGRAMS:
                 # graphs released before the interpreter tears torch down
                 atexit.register(release_programs)
-            _PROGRAMS[key] = LMProgram(data, n_cams, fast, max_iter,
-                                       read_every)
+            _PROGRAMS[key] = LMProgram(data, n_cams, fast, max_iter)
             return _PROGRAMS[key]
     prog.load_data(data)
     return prog
 
 
 @contextlib.contextmanager
-def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50,
-            read_every: int = READ_EVERY):
+def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50):
     """The process's LMProgram for ``data``'s shapes on its device (one
     card, no process group), loaded with ``data``, with its key's lock
     held for the block: from loading ``data``'s tables through the
@@ -980,11 +957,51 @@ def program(data: BAData, n_cams: int, fast: bool, max_iter: int = 50,
     Stitches in several threads of one process then give what each gives
     alone, as with the JAX package's stateless executables; two keys run
     at once."""
-    key = _program_key(data, n_cams, fast, max_iter, read_every)
+    key = _program_key(data, n_cams, fast, max_iter)
     with _CACHE_LOCK:
         lock = _PROGRAM_LOCKS.setdefault(key, threading.Lock())
     with lock:
-        yield _kept(data, n_cams, fast, max_iter, read_every, key)
+        yield _kept(data, n_cams, fast, max_iter, key)
+
+
+@contextlib.contextmanager
+def chunk_programs(group=None):
+    """The LM programs of one BA call (stitch.bundle_adjust_stitching):
+    yields ``program_of(data, n_cams, fast, max_iter=50)``, a context
+    manager lending the program of ``data``'s bucket, loaded with
+    ``data``, for a chunk. Where a program lives follows from the device
+    and the process ``group``:
+
+      * one rank on the card: the process's kept program (``program``),
+        its key's lock held for the chunk;
+      * a group on the card: one program a bucket for the call, closed
+        when the call's block ends, since its graph holds the group's
+        communicator;
+      * the CPU: a program for the chunk alone (no graph to keep)."""
+    call = {}
+
+    @contextlib.contextmanager
+    def program_of(data: BAData, n_cams: int, fast: bool,
+                   max_iter: int = 50):
+        if data.mi.device.type != "cuda":
+            yield LMProgram(data, n_cams, fast, max_iter, group)
+        elif group is None:
+            with program(data, n_cams, fast, max_iter) as prog:
+                yield prog
+        else:
+            key = _program_key(data, n_cams, fast, max_iter)
+            prog = call.get(key)
+            if prog is None:
+                prog = call[key] = LMProgram(data, n_cams, fast, max_iter,
+                                             group)
+            else:
+                prog.load_data(data)
+            yield prog
+    try:
+        yield program_of
+    finally:
+        for prog in call.values():
+            prog.close()
 
 
 def release_programs() -> None:

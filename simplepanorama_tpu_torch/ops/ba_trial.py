@@ -18,13 +18,13 @@ captured in one CUDA graph:
 
 The plain versions are ba.trial_streams_ref and ba.solve_accept_ref,
 which ba.lm_step chains with assemble_streams: the LM's own code, which
-the sharded trial, ``fused=False`` and the CPU run. Each wrapper takes its
-plain version for CPU tensors; for CUDA tensors it launches its kernel
-(built with nvcc at first use) or raises. ``workspace`` holds a bucket's
-plan and buffers. A bucket whose pair tables (beyond ~480 pairs) or
-camera system (beyond 40 cameras) outgrow a CTA's shared memory takes a
-global route for them: kernel 4 after pair_tables_kernel, kernel 5 as
-solve_accept_global_kernel, with their workspace in global memory.
+the sharded trial and the CPU run. Each wrapper launches its kernel
+(built with nvcc at first use) on CUDA tensors and raises on others.
+``workspace`` holds a bucket's plan and buffers. A bucket whose pair
+tables (beyond ~480 pairs) or camera system (beyond 40 cameras) outgrow
+a CTA's shared memory takes a global route for them: kernel 4 after
+pair_tables_kernel, kernel 5 as solve_accept_global_kernel, with their
+workspace in global memory.
 """
 
 from __future__ import annotations
@@ -194,19 +194,12 @@ def _array(ptrs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def trial_streams(st, pb, fast: bool,
-                  ws: Optional[Workspace] = None) -> TrialStreams:
+def trial_streams(st, pb, fast: bool, ws: Workspace) -> TrialStreams:
     """Kernel 4: the streams of the trial from state ``st`` (ba.LMState)
-    of problem ``pb`` (ba.LMProblem). CPU tensors run
-    ba.trial_streams_ref; CUDA tensors launch the kernel into ``ws``'s
-    streams (returned) on the current stream, after pair_tables_kernel
-    on the global route. A trial after the run's end launches kernels
-    that return at once."""
-    if st.lam.device.type == "cpu":
-        from simplepanorama_tpu_torch import ba
-        return ba.trial_streams_ref(st, pb, fast)
-    if ws is None:
-        raise ValueError("trial_streams on the card needs its workspace")
+    of problem ``pb`` (ba.LMProblem), launched into ``ws``'s streams
+    (returned) on the current stream, after pair_tables_kernel on the
+    global route. A trial after the run's end launches kernels that
+    return at once."""
     ptrs = _pointers(st, pb, ws)
     lib = _LIB["lib"]
     with torch.cuda.device(ws.b_trial.device):
@@ -221,22 +214,12 @@ def trial_streams(st, pb, fast: bool,
 
 
 def solve_accept(st, pb, fast: bool, streams: TrialStreams, sums,
-                 live: torch.Tensor, ws: Optional[Workspace] = None) -> None:
+                 live: torch.Tensor, ws: Workspace) -> None:
     """Kernel 5: from kernel 3's ``sums`` (U, +J^T r, YW, yeb) and
     ``streams``, solve the trial's camera system, form its cameras and b
     and its error, and accept or reject it as ba.lm_step does, writing
-    ``st``'s tensors and the termination flag ``live`` in place. CPU
-    tensors run ba.solve_accept_ref and copy its state in; CUDA tensors
-    launch the kernel (one CTA) on the current stream."""
-    if st.lam.device.type == "cpu":
-        from simplepanorama_tpu_torch import ba
-        new, _ = ba.solve_accept_ref(st, pb, fast, streams, sums)
-        for dst, src in zip((*st.cams, *st[1:]), (*new.cams, *new[1:])):
-            dst.copy_(src)
-        live.copy_(ba._live(new, pb.max_iter))
-        return
-    if ws is None:
-        raise ValueError("solve_accept on the card needs its workspace")
+    ``st``'s tensors and the termination flag ``live`` in place; launched
+    (one CTA) on the current stream."""
     if streams is not ws.streams:
         raise ValueError("solve_accept reads the streams of its workspace")
     ptrs = _pointers(st, pb, ws, sums, live)

@@ -12,19 +12,19 @@ the back-substitution d_b = V*^-1 (e_B - W^T d_a) of its own matches
 stays local. This is the reference's get_iter_par dataflow
 (_bundle_adjust_main.cpp:192-244) as a collective schedule.
 
-There is no second LM: ``ba.lm_trial`` with the process group of a mesh
-is the sharded trial. On the card ``ba.LMProgram`` captures it, both
-all_reduces included, as one CUDA graph and replays it, with a host read
-every ba.READ_EVERY trials: the counterpart of the JAX package's one
-compiled program. On the CPU (gloo; CUDA graphs do not exist there), and
-when asked with ``fused=False``, ``ba.lm_run_eager`` runs the same trial
-eagerly. The JAX package's two variants,
-``lm_run_sharded`` (sharding annotations, XLA's partitioner inserts the
-all-reduces) and ``lm_run_shard_map`` (explicit psums), compute the same
-numbers; here both names are this one implementation, and
-``make_lm_step_shard_map`` exposes one trial of it. At one rank the
-all-reduces are the identity, so the result equals ba.lm_run_eager's bit
-for bit.
+There is no second LM: ``ba.lm_step`` with the process group of a mesh
+is the sharded trial, and ``ba.LMProgram`` with that group runs it, with
+a host read every ba.READ_EVERY trials. On the card the program captures
+it, both all_reduces included, as one CUDA graph and replays it: the
+counterpart of the JAX package's one compiled program; on the CPU (gloo;
+CUDA graphs do not exist there) it runs the trial between the reads.
+The JAX package's two variants, ``lm_run_sharded`` (sharding
+annotations, XLA's partitioner inserts the all-reduces) and
+``lm_run_shard_map`` (explicit psums), compute the same numbers; here
+both names are this one implementation, and ``make_lm_step_shard_map``
+exposes one trial of it. At one rank the all-reduces are the identity,
+so the result equals, bit for bit, that of a program without a group
+whose trial is ba.lm_step.
 
 The matches are interleaved across ranks (parallel.mesh.shard_matches):
 the match count must be divisible by the mesh size, and each rank's
@@ -40,38 +40,29 @@ from simplepanorama_tpu_torch.parallel.mesh import (Mesh, shard_matches,
 
 def lm_run_sharded(cams: ba.CamState, data: ba.BAData, cam_active,
                    lambda0, mesh: Mesh, fast: bool = False,
-                   max_iter: int = 50,
-                   vaug_idx=None, ws=None,
-                   with_counts: bool = False, fused: bool = True):
+                   max_iter: int = 50, vaug_idx=None,
+                   with_counts: bool = False):
     """ba.lm_run with the match axis split over ``mesh``. ``cams`` and
     ``data`` are whole (every rank holds the same), on ``mesh.device``;
     the result's b is gathered back to the whole table on every rank.
-    On the card (``fused``, the default) the trial is one CUDA graph with
-    its all_reduces inside (ba.LMProgram with the mesh's group, made and
-    released in this call); ``fused=False`` and the CPU run it eagerly,
-    with kernel 3's workspace ``ws`` for this rank's share (on the card).
-    With ``with_counts`` it returns (LMResult, trials executed, host
-    reads), as ba.lm_run_eager does. ``lm_run_sharded.last_stats`` holds
-    the last call's ``graphed`` and ``capture_s`` (host seconds
-    capturing)."""
+    The run is a ba.LMProgram's with the mesh's group, made and closed in
+    this call: on the card its trial is one CUDA graph with its
+    all_reduces inside. With ``with_counts`` it returns (LMResult, trials
+    executed, host reads), as LMProgram.run does.
+    ``lm_run_sharded.last_stats`` holds the last call's ``graphed``
+    (whether it ran on the card, where the trial is a graph) and
+    ``capture_s`` (host seconds capturing)."""
     local = shard_matches(data, mesh)
     start = cams._replace(b=cams.b[mesh.rank::mesh.size])
-    graphed = fused and cams.focal.device.type == "cuda"
-    capture_s = 0.0
-    if graphed:
-        program = ba.LMProgram(local, cams.focal.shape[0], fast,
-                               max_iter=max_iter, group=mesh.group)
-        try:
-            res, executed, reads = program.run(start, cam_active, lambda0,
-                                               vaug_idx)
-            capture_s = program.capture_s
-        finally:
-            program.close()
-    else:
-        res, executed, reads = ba.lm_run_eager(
-            start, local, cam_active, lambda0, fast=fast,
-            max_iter=max_iter, vaug_idx=vaug_idx, ws=ws, group=mesh.group)
-    lm_run_sharded.last_stats = {"graphed": graphed, "capture_s": capture_s}
+    program = ba.LMProgram(local, cams.focal.shape[0], fast,
+                           max_iter=max_iter, group=mesh.group)
+    try:
+        res, executed, reads = program.run(start, cam_active, lambda0,
+                                           vaug_idx)
+    finally:
+        program.close()
+    lm_run_sharded.last_stats = {"graphed": program.graphed,
+                                 "capture_s": program.capture_s}
     b = cams.b if fast else unshard_matches(res.cams.b, mesh)
     res = res._replace(cams=res.cams._replace(b=b))
     return (res, executed, reads) if with_counts else res

@@ -12,13 +12,13 @@ Cameras are renumbered into addition order and matches sorted by
 activation step, so the live subproblem after addition l is a prefix of
 the padded tables. The schedule is split into equal-work chunks, each run
 at a cropped capacity bucket (matches rounded to 2048, cameras to 8) —
-the JAX package's bucket plan. On the card each bucket's LM trial is one
-CUDA graph (ba.LMProgram), replayed with a host read of the termination
-flag every few trials: the counterpart of the JAX package's one compiled
+the JAX package's bucket plan. Each chunk's LM runs go through its
+bucket's ba.LMProgram, which ba lends (ba.chunk_programs) and which reads
+the termination flag every few trials; on the card its trial is one CUDA
+graph, replayed: the counterpart of the JAX package's one compiled
 program per chunk; on one card a trial is three kernels
-(ba.fused_trial).
-As the JAX package's jit cache keeps that program for the process,
-ba.program keeps the graph: a later stitch whose bucket has
+(ba.fused_trial). As the JAX package's jit cache keeps that program for
+the process, ba.program keeps the graph: a later stitch whose bucket has
 the same shapes loads its match tables into it and replays, capturing
 nothing (ba.release_programs() drops them all); a chunk holds its
 program's lock, so stitches in several threads stay apart. In a world
@@ -30,7 +30,6 @@ all_reduces too; such graphs live for one call. The additions themselves
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -43,7 +42,6 @@ from simplepanorama_tpu_torch.config import Config
 from simplepanorama_tpu_torch.geometry import rotation as rotn
 from simplepanorama_tpu_torch.geometry.graph import (
     Component, order_nodes_by_connection)
-from simplepanorama_tpu_torch.ops import ba_kernel
 from simplepanorama_tpu_torch.utils.device import checked_device
 from simplepanorama_tpu_torch.utils.timing import global_timer, span
 
@@ -209,17 +207,13 @@ class LMCounts(NamedTuple):
 
 
 def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
-              data_c: ba.BAData, lo: int, hi: int, order_conns, H_pair,
-              vaug, lambda0: float, fast: bool,
-              program: Optional[ba.LMProgram] = None, ws=None,
-              group=None):
+              program: ba.LMProgram, lo: int, hi: int, order_conns, H_pair,
+              vaug, lambda0: float):
     """Additions [lo, hi) of the schedule at one capacity bucket: each
     activates its camera (eagerly, with the SVD of its rotation init),
-    then runs LM over the active set, through ``program`` (the bucket's
-    CUDA graph) or as eager trials (with the kernel scratch ``ws`` on the
-    card; with a process ``group``, over this rank's share of the
-    matches, parallel.dist_ba). ``active_c`` is updated in place. Returns
-    (cams, LMCounts); the counts stay on the device."""
+    then runs LM over the active set through ``program``, the bucket's
+    ba.LMProgram. ``active_c`` is updated in place. Returns (cams,
+    LMCounts); the counts stay on the device."""
     dev = cams_c.focal.device
     trials = torch.zeros((), dtype=torch.int64, device=dev)
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -229,17 +223,12 @@ def _lm_chunk(cams_c: ba.CamState, active_c: torch.Tensor,
     for l in range(lo, hi):
         cams_c = _add_camera(cams_c, l, order_conns[l], H_pair[l])
         active_c[l] = True
-        if program is not None:
-            fresh = program.graph is None
-            res, n, r = program.run(cams_c, active_c, lambda0, int(vaug[l]))
-            if fresh:
-                graphs += 1
-                capture_s += program.capture_s
-            fused += n if program.trial_kernels else 0
-        else:
-            res, n, r = ba.lm_run_eager(cams_c, data_c, active_c, lambda0,
-                                        fast=fast, vaug_idx=int(vaug[l]),
-                                        ws=ws, group=group)
+        fresh = program.graph is None
+        res, n, r = program.run(cams_c, active_c, lambda0, int(vaug[l]))
+        if fresh and program.graph is not None:
+            graphs += 1
+            capture_s += program.capture_s
+        fused += n if program.trial_kernels else 0
         cams_c = res.cams
         error = res.error
         trials = trials + res.n_iter
@@ -257,30 +246,28 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                             cfg: Config,
                             progress: Optional[Callable[[float], None]] = None,
                             cancelled: Optional[Callable[[], bool]] = None,
-                            device="cuda", fused: bool = True) -> StitchResult:
+                            device="cuda") -> StitchResult:
     """Run the incremental BA over one connected component; ``sizes`` are
     (h, w) of the global image list, ``focal`` the scene estimate.
-    ``cfg.fast`` selects the Lowe objective. ``fused`` (the default) runs
-    each chunk of the schedule as its bucket's CUDA graph, replayed, on
-    the card (kernels 4, 3 and 5, ba.fused_trial): ba.program's kept
-    LMProgram of the bucket's shapes, held by
+    ``cfg.fast`` selects the Lowe objective. Each chunk of the schedule
+    runs through the LMProgram of its bucket that ba.chunk_programs lends:
+    on one card ba.program's kept program of the bucket's shapes, held by
     this thread for the chunk, loaded with this problem's match tables,
-    captured only when the process has none yet
-    (a chunk's LMCounts count the captures it made; the chunks' trials
-    go to the timer's counters, ``_count_trials``);
-    ``fused=False``, and every run on the CPU, runs the same trial
-    eagerly. Progress and cancellation are per chunk. ``device`` is the
-    card unless the caller asks for another.
+    its trial (kernels 4, 3 and 5, ba.fused_trial) captured as a CUDA
+    graph only when the process has none yet (a chunk's LMCounts count
+    the captures it made; the chunks' trials go to the timer's counters,
+    ``_count_trials``); on the CPU a program of the chunk's own, whose
+    trial is ba.lm_step. Progress and cancellation are per chunk.
+    ``device`` is the card unless the caller asks for another.
 
     In a world of several ranks (parallel.mesh.pipeline_mesh) the matches
     of every chunk are split across the ranks, with the camera system and
     the trial error all-reduced (parallel.dist_ba): match capacity then
     rounds to 512 per rank, so every rank's share suits kernel 3, and b is
-    gathered back after each chunk. With ``fused`` on the card each
-    bucket's sharded trial is one CUDA graph holding its all_reduces
-    (ba.LMProgram with the mesh's group, closed when the call returns);
-    ``fused=False`` and the CPU run it eagerly. Every rank ends with the
-    same result."""
+    gathered back after each chunk. On the card each bucket's sharded
+    trial is one CUDA graph holding its all_reduces (ba.LMProgram with
+    the mesh's group, closed when the call returns). Every rank ends with
+    the same result."""
     from simplepanorama_tpu_torch.parallel.mesh import (
         pipeline_mesh, shard_matches, unshard_matches)
     device = checked_device(device)
@@ -337,13 +324,10 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
         b=data.t.clone())
     active = torch.zeros(n_pad, dtype=torch.bool, device=device)
     active[0] = True
-    on_card = torch.device(device).type == "cuda"
-    # (n_cap, m_cap) -> the sharded ba.LMProgram, for this call only: its
-    # graph holds the group's communicator
-    programs = {}
     chunk_counts = []
-    try:
-        m_round = int(np.lcm(2048, 512 * world))
+    m_round = int(np.lcm(2048, 512 * world))
+    with ba.chunk_programs(None if mesh is None else mesh.group) \
+            as program_of:
         for lo, hi, n_cap, m_cap in _chunk_plan(prefix, L, n_pad, Mcap,
                                                 m_round):
             sl = lambda x: x[:m_cap]
@@ -353,25 +337,13 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
             cams_c = ba.CamState(cams.focal[:n_cap], cams.ppal[:n_cap],
                                  cams.rotvec[:n_cap], sl(cams.b))
             active_c = active[:n_cap].clone()
-            held, ws = contextlib.nullcontext(), None
             if mesh is not None:
                 data_c = shard_matches(data_c, mesh)
                 cams_c = cams_c._replace(b=cams_c.b[mesh.rank::world])
-            if on_card and fused and mesh is None:
-                # the kept program, no other thread's until the chunk ends
-                held = ba.program(data_c, n_cap, bool(cfg.fast))
-            elif on_card and fused:
-                if (n_cap, m_cap) not in programs:
-                    programs[n_cap, m_cap] = ba.LMProgram(
-                        data_c, n_cap, bool(cfg.fast), group=mesh.group)
-                held = contextlib.nullcontext(programs[n_cap, m_cap])
-            elif on_card:
-                ws = ba_kernel.workspace(m_cap // world, n_cap, device)
-            with held as program:
+            with program_of(data_c, n_cap, bool(cfg.fast)) as program:
                 cams_c, counts = _lm_chunk(
-                    cams_c, active_c, data_c, lo, hi, order_conns, H_pair,
-                    vaug, float(cfg.lambda_), bool(cfg.fast), program, ws,
-                    None if mesh is None else mesh.group)
+                    cams_c, active_c, program, lo, hi, order_conns, H_pair,
+                    vaug, float(cfg.lambda_))
             if counts is not None:
                 chunk_counts.append(counts)
             if mesh is not None:
@@ -386,9 +358,6 @@ def bundle_adjust_stitching(comp: Component, adjres: Adjacency,
                 progress((hi - lo) / (L - 1))
             if cancelled is not None and cancelled():
                 raise RuntimeError("Process canceled")
-    finally:
-        for program in programs.values():
-            program.close()
 
     with span("ba.readback"):
         focal_new = cams.focal.cpu().double().numpy()

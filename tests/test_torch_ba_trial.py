@@ -1,11 +1,11 @@
-"""The single-card LM trial (ba.fused_trial: kernels 4, 3 and 5 on the
-card) through its plain versions on the CPU, against ba.lm_step, and the
-counter of trials it runs.
+"""The LM trial a program runs in place (LMProgram.trial) against
+ba.lm_step on the CPU, and the counter of trials run by kernels 4 and 5.
 
-On the CPU ops/ba_trial's wrappers take ba.trial_streams_ref and
-ba.solve_accept_ref and ops/ba_kernel's takes assemble_streams_ref, so
-the chain is the plain version of the card's three kernels;
-tests/test_torch_cuda.py holds the kernels against it on the card.
+On the card a single-card program's trial is ba.fused_trial, kernels 4,
+3 and 5; their plain versions are ba.trial_streams_ref,
+ops/ba_kernel.assemble_streams_ref and ba.solve_accept_ref, which
+ba.lm_step chains and a CPU program runs (tests/test_torch_cuda.py holds
+the kernels against them on the card).
 """
 
 import numpy as np
@@ -44,26 +44,30 @@ def _fields(st):
     return (*st.cams, st.err, st.lam, st.it, st.strikes, st.n_acc)
 
 
-def _copy(st):
-    return ba.LMState(ba.CamState(*(t.clone() for t in st.cams)),
-                      *(t.clone() for t in st[1:]))
+def _program(st, pb, fast):
+    """A CPU LMProgram of ``pb``'s problem holding the state ``st``."""
+    prog = ba.LMProgram(pb.data, st.cams.focal.shape[0], fast,
+                        max_iter=int(pb.max_iter))
+    prog._load(st.cams, pb.cam_active, 0.05)
+    prog._store(st)
+    return prog
 
 
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("kind", sorted(PROBLEMS))
 def test_fused_trial_equals_lm_step(kind, fast):
-    """The plain versions of kernels 4 and 5 chained with
-    assemble_streams_ref (ba.fused_trial on CPU tensors, in place) give
-    ba.lm_step's state bit for bit, and the termination flag of that
-    state, on problems with inactive cameras, a camera id outside the
-    table, a singular system (rejected: the state keeps its cameras and
-    error) and a trial after the run's end (a no-op), in both
+    """A CPU program's trial (LMProgram.trial: the plain versions of
+    kernels 4, 3 and 5 chained, written into the program's buffers in
+    place) gives ba.lm_step's state bit for bit, and the termination flag
+    of that state, on problems with inactive cameras, a camera id outside
+    the table, a singular system (rejected: the state keeps its cameras
+    and error) and a trial after the run's end (a no-op), in both
     objectives. Camera 0, at the identity, keeps its rotation."""
     st, pb = _state(kind, fast)
     want, err_new = ba.lm_step(st, pb, fast)
-    got = _copy(st)
-    live = torch.ones((), dtype=torch.bool)
-    ba.fused_trial(got, pb, fast, live)
+    prog = _program(st, pb, fast)
+    prog.trial()
+    got, live = prog.st, prog.live
     for a, b in zip(_fields(got), _fields(want)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert bool(live) == bool(ba._live(want, pb.max_iter))
@@ -86,62 +90,56 @@ def test_fused_trial_equals_lm_step(kind, fast):
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_fused_trials_run_as_eager_trials(fast):
-    """Twelve trials through ba.fused_trial equal twelve ba.lm_trial
-    calls bit for bit, accepted and rejected ones alike."""
+    """Twelve trials of a CPU program in place (LMProgram.trial) equal
+    twelve ba.lm_trial calls bit for bit, accepted and rejected ones
+    alike."""
     st, pb = _state("inactive_cameras", fast)
-    got = _copy(st)
-    live = torch.ones((), dtype=torch.bool)
+    prog = _program(st, pb, fast)
     for _ in range(12):
         st = ba.lm_trial(st, pb, fast)
-        ba.fused_trial(got, pb, fast, live)
-        for a, b in zip(_fields(got), _fields(st)):
+        prog.trial()
+        for a, b in zip(_fields(prog.st), _fields(st)):
             assert torch.equal(a, b)
     assert 0 < int(st.n_acc) < 12
 
 
-class _Replay:
-    """The CPU stand-in of a captured trial: the program's own trial on
-    its buffers (tests/test_torch_program_cache.py)."""
+class _OneRankOnTheCard(ba.LMProgram):
+    """A CPU program standing in for one rank's on the card, whose trial
+    is kernels 4, 3 and 5 (trial_kernels): their plain versions chained,
+    ba.lm_step, written into its buffers."""
+    trial_kernels = True
 
-    def __init__(self, prog):
-        self.prog = prog
-
-    def replay(self):
-        self.prog.trial()
-
-    def reset(self):
-        pass
+    def trial(self):
+        self._store(ba.lm_step(self.st, self.pb, self.fast)[0])
 
 
 @pytest.mark.parametrize("fast", [False, True])
-def test_program_counts_fused_trials(fast, monkeypatch):
-    """A single-card LMProgram with its capture replaced by one that
-    replays the program's own trial: a chunk through it counts every
-    trial executed (the warm-up included) as fused, and ba.fused_trials
-    in the timer's counters rises with ba.trials_executed; an eager
-    chunk counts none. The program's runs equal the eager LM's."""
-
-    def capture(self):
-        self.trial()
-        self.graph = _Replay(self)
-        self.capture_s = 0.0
-    monkeypatch.setattr(ba.LMProgram, "_capture", capture)
+def test_program_counts_fused_trials(fast):
+    """A chunk through a program whose trial is kernels 4 and 5's
+    (_OneRankOnTheCard) counts every trial executed as fused, and
+    ba.fused_trials in the timer's counters rises with it; a chunk
+    through a CPU program (its trial ba.lm_step) counts none, and
+    ba.trials_executed rises with both. The two chunks' runs are
+    equal."""
     cams, data, active = lm_trial_problem(8, 1024, seed=4)
-    prog = ba.LMProgram(data, 8, fast)
-    assert prog.trial_kernels and prog.tw is None
+    plain = ba.LMProgram(data, 8, fast)
+    assert not plain.trial_kernels and plain.tw is None
+    assert not plain.graphed
 
     def chunk(program):
         act = active.clone()
         act[3:] = False
         H = torch.eye(3).expand(8, 3, 3)
-        return tstitch._lm_chunk(cams, act, data, 3, 5, [2] * 8, H,
-                                 np.arange(8), 0.05, fast, program)
+        return tstitch._lm_chunk(cams, act, program, 3, 5, [2] * 8, H,
+                                 np.arange(8), 0.05)
     counters = global_timer().counters
     before = dict(counters)
-    (c_p, k_p), (c_e, k_e) = chunk(prog), chunk(None)
+    (c_p, k_p), (c_e, k_e) = (chunk(_OneRankOnTheCard(data, 8, fast)),
+                              chunk(plain))
     tstitch._count_trials([k_p, k_e])
     assert k_p.fused == k_p.executed > int(k_p.trials) > 0
     assert k_e.fused == 0 and k_e.executed > 0
+    assert k_p.graphs == k_e.graphs == 0
     assert int(k_p.trials) == int(k_e.trials)
     for a, b in zip(c_p, c_e):
         assert torch.equal(a, b)

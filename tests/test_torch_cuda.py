@@ -740,18 +740,21 @@ def _scaled_cond(st, pb, fast, sums):
 
 
 def _lm_run_f64(cams, data, active, fast, max_iter, monkeypatch):
-    """ba.lm_run_eager in float64 on the CPU (kernel 3's plain version
-    summing float64 streams): the reference a float32 LM run is held
-    to."""
+    """The LM run in float64 on the CPU (ba.lm_trial until the run ends,
+    kernel 3's plain version summing float64 streams): the reference a
+    float32 LM run is held to."""
     from simplepanorama_tpu_torch import ba
     d = lambda t: t.cpu().double() if t.is_floating_point() else t.cpu()
     with monkeypatch.context() as m:
         m.setattr(ba_kernel, "assemble_streams",
                   lambda *a, ws=None, **kw:
                   ba_kernel.assemble_streams_ref(*a, **kw))
-        return ba.lm_run_eager(ba.CamState(*map(d, cams)),
-                               ba.BAData(*map(d, data)), active.cpu(),
-                               0.05, fast=fast, max_iter=max_iter)[0]
+        pb = ba.lm_problem(ba.BAData(*map(d, data)), active.cpu(),
+                           max_iter=max_iter)
+        st = ba.lm_init(ba.CamState(*map(d, cams)), pb, 0.05, fast)
+        while bool(ba._live(st, pb.max_iter)):
+            st = ba.lm_trial(st, pb, fast)
+        return ba._result(st)
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -774,13 +777,13 @@ def test_fused_program_follows_the_eager_lm(cuda, fast, monkeypatch):
     float32 roundings of the state, at most ten times cuSOLVER's on the
     same float32 system plus 1e-5 of the step. Then whole runs to the
     LM's end, up to 300 trials, against the same run in float64
-    (_lm_run_f64): the program's captured run and ba.lm_run_eager each
-    end within 2% of its error (on the card over six problems: the
-    program within 2.3e-5 but one run that stopped on six rejections in
-    a row at 80 trials, 1.15e-2; eager within 1.1e-4), rotations within
-    2e-3 rad and focal, principal point and b within 1e-2 px (4.5e-4 rad
-    and 1e-4 px). A run of wrong steps stops far short of that
-    optimum."""
+    (_lm_run_f64): the program's captured run and ba.lm_run (a program
+    of its own, made, run and closed) each end within 2% of its error
+    (on the card over six problems: the program within 2.3e-5 but one
+    run that stopped on six rejections in a row at 80 trials, 1.15e-2),
+    rotations within 2e-3 rad and focal, principal point and b within
+    1e-2 px (4.5e-4 rad and 1e-4 px). A run of wrong steps stops far
+    short of that optimum."""
     from simplepanorama_tpu_torch import ba
     cams, data, active = lm_trial_problem(16, 6144, seed=5, device="cuda",
                                            inactive=1, outside=True)
@@ -789,62 +792,60 @@ def test_fused_program_follows_the_eager_lm(cuda, fast, monkeypatch):
         pb = ba.lm_problem(data, active, ws=prog.pb.ws)
         st = ba.lm_init(cams, pb, 0.05, fast)
         compared, steps = 0, []
-        with ba._device_trials(True):
-            for k in range(30):
-                new, e_eager = ba.lm_step(st, pb, fast)
-                ts = ba.trial_streams_ref(st, pb, fast)
-                cond = _scaled_cond(st, pb, fast, ba._camera_sums(
-                    ts[:9], pb, 16, fast))
-                # the system kernels 4 and 3 build, solved by cuSOLVER
-                # and in float64
-                kts = ba_trial.trial_streams(_copy_state(st), pb, fast,
-                                             prog.tw)
-                S, rhs = ba._system(ba_kernel.assemble_streams(
-                    *kts[:9], pb.mi, pb.mj, 16, with_schur=not fast,
-                    ws=pb.ws), ba._aug_scales(st.cams.focal), st.lam,
-                    pb.cam_active, fast)
-                da_c = ba._solve_preconditioned(S, rhs).double()
-                da_64 = ba._solve_preconditioned(S.double(), rhs.double())
-                got = _copy_state(st)._replace(
-                    err=torch.full_like(st.err, float("inf")))
-                live = torch.zeros((), dtype=torch.bool, device="cuda")
-                ba.fused_trial(got, pb, fast, live, prog.tw)
-                six = lambda c: torch.cat([c.focal[:, None], c.ppal,
-                                           c.rotvec], 1).double()
-                keep = pb.cam_active[:, None].expand(16, 6).clone()
-                keep[:, 3:] &= (st.cams.rotvec.norm(dim=1) >= 1e-6)[:, None]
-                on = lambda x: torch.where(keep, x.reshape(16, 6), 0.0)
-                e_c = float((on(da_c) - on(da_64)).abs().max())
-                e_k = float(((on(six(got.cams) - six(st.cams))
-                              - on(da_64)).abs() - 4 * 2.0 ** -24
-                             * six(st.cams).abs()).clamp(min=0).max())
-                steps.append((k, cond, e_k, e_c,
-                              float(on(da_64).abs().max())))
-                ok_f = bool(torch.isfinite(got.err) & (got.err < st.err))
-                ok_e = bool(new.n_acc > st.n_acc)
-                if cond < 1e4:
-                    compared += 1
-                    assert ok_f == ok_e, (k, cond)
-                    assert abs(float(got.err) - float(e_eager)) <= \
-                        1e-4 * float(e_eager), (k, cond)
-                    if ok_e:
-                        for g, w, s0 in zip(got.cams, new.cams, st.cams):
-                            step = float((w - s0).norm())
-                            diff = float((g - w).norm())
-                            assert diff <= 100 * cond * 2 ** -24 * step \
-                                + 1e-6 * float(w.norm()), (k, cond)
-                st = new
+        for k in range(30):
+            new, e_eager = ba.lm_step(st, pb, fast)
+            ts = ba.trial_streams_ref(st, pb, fast)
+            cond = _scaled_cond(st, pb, fast, ba._camera_sums(
+                ts[:9], pb, 16, fast))
+            # the system kernels 4 and 3 build, solved by cuSOLVER
+            # and in float64
+            kts = ba_trial.trial_streams(_copy_state(st), pb, fast,
+                                         prog.tw)
+            S, rhs = ba._system(ba_kernel.assemble_streams(
+                *kts[:9], pb.mi, pb.mj, 16, with_schur=not fast,
+                ws=pb.ws), ba._aug_scales(st.cams.focal), st.lam,
+                pb.cam_active, fast)
+            da_c = ba._solve_preconditioned(S, rhs).double()
+            da_64 = ba._solve_preconditioned(S.double(), rhs.double())
+            got = _copy_state(st)._replace(
+                err=torch.full_like(st.err, float("inf")))
+            live = torch.zeros((), dtype=torch.bool, device="cuda")
+            ba.fused_trial(got, pb, fast, live, prog.tw)
+            six = lambda c: torch.cat([c.focal[:, None], c.ppal,
+                                       c.rotvec], 1).double()
+            keep = pb.cam_active[:, None].expand(16, 6).clone()
+            keep[:, 3:] &= (st.cams.rotvec.norm(dim=1) >= 1e-6)[:, None]
+            on = lambda x: torch.where(keep, x.reshape(16, 6), 0.0)
+            e_c = float((on(da_c) - on(da_64)).abs().max())
+            e_k = float(((on(six(got.cams) - six(st.cams))
+                          - on(da_64)).abs() - 4 * 2.0 ** -24
+                         * six(st.cams).abs()).clamp(min=0).max())
+            steps.append((k, cond, e_k, e_c,
+                          float(on(da_64).abs().max())))
+            ok_f = bool(torch.isfinite(got.err) & (got.err < st.err))
+            ok_e = bool(new.n_acc > st.n_acc)
+            if cond < 1e4:
+                compared += 1
+                assert ok_f == ok_e, (k, cond)
+                assert abs(float(got.err) - float(e_eager)) <= \
+                    1e-4 * float(e_eager), (k, cond)
+                if ok_e:
+                    for g, w, s0 in zip(got.cams, new.cams, st.cams):
+                        step = float((w - s0).norm())
+                        diff = float((g - w).norm())
+                        assert diff <= 100 * cond * 2 ** -24 * step \
+                            + 1e-6 * float(w.norm()), (k, cond)
+            st = new
         assert compared >= 2
         assert all(e_k <= 10 * e_c + 1e-5 * step
                    for _, _, e_k, e_c, step in steps), steps
         res_f = prog.run(cams, active, 0.05)[0]
-        res_e = ba.lm_run_eager(cams, data, active, 0.05, fast=fast,
-                                max_iter=300, ws=prog.pb.ws)[0]
     finally:
         prog.close()
+    res_l = ba.lm_run(cams, data, active, 0.05, fast=fast, max_iter=300)
     ref = _lm_run_f64(cams, data, active, fast, 300, monkeypatch)
     assert int(ref.n_iter) < 300
-    for name, res in (("program", res_f), ("eager", res_e)):
+    for name, res in (("program", res_f), ("lm_run", res_l)):
         assert abs(float(res.error) - float(ref.error)) <= \
             2e-2 * float(ref.error), (name, float(res.error),
                                       float(ref.error))
@@ -962,10 +963,10 @@ def slice3_ba(tmp_path_factory):
                         Config(fast=True))
 
 
-def _run_ba(args, fused, fast=False):
-    """bundle_adjust_stitching on the card with the chunk driver's counts
-    summed: (result, {runs, trials, accepted, executed, fused, reads,
-    graphs})."""
+def _run_ba(args, fast=False, device="cuda"):
+    """bundle_adjust_stitching on ``device`` with the chunk driver's
+    counts summed: (result, {runs, trials, accepted, executed, fused,
+    reads, graphs})."""
     from simplepanorama_tpu_torch import stitch
     counts = dict(runs=0, trials=0, accepted=0, executed=0, fused=0,
                   reads=0, graphs=0)
@@ -979,67 +980,77 @@ def _run_ba(args, fused, fast=False):
     stitch._lm_chunk = counted
     try:
         res = stitch.bundle_adjust_stitching(*args, Config(fast=fast),
-                                             device="cuda", fused=fused)
+                                             device=device)
     finally:
         stitch._lm_chunk = chunk
     return res, counts
 
 
-def _eager_kernel_trials():
-    """A stand-in for ba.lm_trial that runs kernels 4, 3 and 5 eagerly
-    (ba.fused_trial on a copy of the state, the problem's tables copied
-    once into buffers of the layout the kernels take): ba.lm_run_eager
-    then runs the graph's arithmetic without a graph."""
-    from simplepanorama_tpu_torch import ba
-    held = {}
+class _Uncaptured:
+    """A stand-in for a program's CUDA graph: each replay runs the
+    program's trial eagerly, its kernels (and collectives) launched one
+    by one."""
 
-    def trial(st, pb, fast):
-        if held.get("pb") is not pb:
-            data = ba.BAData(*(t.clone() for t in pb.data))
-            held.update(pb=pb, copy=pb._replace(
-                data=data, cam_active=pb.cam_active.clone()),
-                tw=ba_trial.workspace(data.mi.shape[0],
-                                      st.cams.focal.shape[0],
-                                      data.pi.shape[0], "cuda"))
-        new = _copy_state(st)
-        live = torch.zeros((), dtype=torch.bool, device="cuda")
-        ba.fused_trial(new, held["copy"], fast, live, held["tw"])
-        return new
-    return trial
+    def __init__(self, prog):
+        self.prog = prog
+
+    def replay(self):
+        self.prog.trial()
+
+    def reset(self):
+        pass
+
+
+def _capture_uncaptured(self):
+    """A stand-in for LMProgram._capture: the warm-up trial, then an
+    _Uncaptured graph, so that the program's runs take its trial
+    uncaptured between the reads."""
+    self.trial()
+    self.graph = _Uncaptured(self)
+    self.capture_s = 0.0
 
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_ba_graphs_capture_every_bucket_and_match_eager(cuda, slice1_ba,
                                                         fast, monkeypatch):
-    """Slice 1's BA with fused=True captures one CUDA graph per capacity
+    """Slice 1's BA on the card captures one CUDA graph per capacity
     bucket of its schedule (a host sync inside the trial would have
     failed the capture: the capturing thread may make none), and
     launches kernel 3 once per trial executed, every one of them through
-    kernels 4 and 5; against fused=False with the same trial eager
-    (kernels 4, 3 and 5 launched one by one, _eager_kernel_trials) the
-    same trials and accepted steps, and cameras within 1e-5 relative.
-    fused=False itself (ba.lm_step, eager) captures nothing and runs the
-    same LM runs with no trial through kernels 4 and 5. The process's
-    kept programs are released first (the recording stitch left its
-    own), so every bucket is captured in this call."""
+    kernels 4 and 5; against the same programs with the trial uncaptured
+    (_capture_uncaptured: kernels 4, 3 and 5 launched one by one) the
+    same trials and accepted steps, kernel 3 again once per trial
+    executed, and cameras within 1e-5 relative. On the CPU (ba.lm_step,
+    no graph) the same BA captures nothing and runs the same LM runs
+    with no trial through kernels 4 and 5. The process's kept programs
+    are released first (the recording stitch left its own), so every
+    bucket is captured in this call, and after the uncaptured run, whose
+    programs hold stand-in graphs."""
     from simplepanorama_tpu_torch import ba, stitch
     comp, adjres, sizes, focal = slice1_ba
     ba.release_programs()
     before = ba_kernel.assemble_streams.launches
-    res_f, c_f = _run_ba(slice1_ba, True, fast)
+    res_f, c_f = _run_ba(slice1_ba, fast)
     launches = ba_kernel.assemble_streams.launches - before
-    with monkeypatch.context() as m:
-        m.setattr(ba, "lm_trial", _eager_kernel_trials())
-        res_e, c_e = _run_ba(slice1_ba, False, fast)
-    _, c_s = _run_ba(slice1_ba, False, fast)
+    ba.release_programs()
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(ba.LMProgram, "_capture", _capture_uncaptured)
+            before = ba_kernel.assemble_streams.launches
+            res_e, c_e = _run_ba(slice1_ba, fast)
+            launches_e = ba_kernel.assemble_streams.launches - before
+    finally:
+        ba.release_programs()
+    _, c_s = _run_ba(slice1_ba, fast, device="cpu")
     n = len(comp.nodes)
     data, prefix = stitch.build_ba_data(
         comp, adjres, order=stitch.order_nodes_by_connection(
             comp.adj + comp.adj.T))
     buckets = {(nc, mc) for _, _, nc, mc in stitch._chunk_plan(
         prefix, n, stitch._round_up(n, 8), data.mi.shape[0])}
-    assert c_f["graphs"] == len(buckets) and c_e["graphs"] == 0
+    assert c_f["graphs"] == c_e["graphs"] == len(buckets)
     assert launches == c_f["executed"] == c_f["fused"]
+    assert launches_e == c_e["executed"] == c_e["fused"]
     assert (c_f["runs"], c_f["trials"], c_f["accepted"]) == \
         (c_e["runs"], c_e["trials"], c_e["accepted"])
     np.testing.assert_allclose(res_f.K, res_e.K, rtol=1e-5, atol=1e-5)
@@ -1140,8 +1151,8 @@ def test_kept_program_replays_another_problem_of_its_bucket(cuda, fast):
     ba.release_programs()
     problems = {seed: _ba_problem_card(seed=seed) for seed in (2, 3)}
     (ca, da), (cb, db) = problems[2], problems[3]
-    assert ba._program_key(da, 4, fast, 50, 8) == \
-        ba._program_key(db, 4, fast, 50, 8)
+    assert ba._program_key(da, 4, fast, 50) == \
+        ba._program_key(db, 4, fast, 50)
     assert not torch.equal(da.q, db.q)
     active = torch.ones(4, dtype=torch.bool, device="cuda")
     kept, graph = {}, None
@@ -1218,10 +1229,11 @@ def test_threads_share_a_kept_program(cuda, fast):
 
 def test_card_linalg_stays_on_cusolver_beside_a_ba_thread(cuda):
     """checked_device("cuda") puts the card's linear algebra on cuSOLVER
-    for the process, and LM runs in another thread (eager trials, then a
-    kept program's capture and replays) leave it so: while they run and
-    after, this thread's batched 3x3 inverses (adjacency's shape) give
-    the bits they gave before the runs."""
+    for the process, and LM runs in another thread (ba.lm_run: a program
+    of its own, captured and closed; then a kept program's capture and
+    replays) leave it so: while they run and after, this thread's
+    batched 3x3 inverses (adjacency's shape) give the bits they gave
+    before the runs."""
     import threading
     from simplepanorama_tpu_torch import ba
     from simplepanorama_tpu_torch.utils.device import checked_device
@@ -1238,7 +1250,7 @@ def test_card_linalg_stays_on_cusolver_beside_a_ba_thread(cuda):
 
     def run():
         try:
-            ba.lm_run_eager(cams, data, active, 0.05)
+            ba.lm_run(cams, data, active, 0.05)
             with ba.program(data, 4, False) as prog:
                 prog.run(cams, active, 0.05)
             torch.cuda.synchronize()
@@ -1279,7 +1291,7 @@ def test_release_programs_frees_the_pools(cuda, slice1_ba):
     ba.release_programs()
     torch.cuda.empty_cache()
     before = _private_pool_bytes(torch)
-    _run_ba(slice1_ba, True)
+    _run_ba(slice1_ba)
     held = _private_pool_bytes(torch)
     reserved = torch.cuda.memory_reserved()
     assert held > before and len(ba._PROGRAMS) >= 1
@@ -1393,8 +1405,9 @@ def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
     error all-reduced over NCCL) against the trial without one, at world
     1 on the card: every state tensor equal, bit for bit (a sum over one
     rank is the identity), with kernel 3 launched once in the sharded
-    trial; then 12 trials of lm_run_sharded against ba.lm_run_eager, the
-    same bits again."""
+    trial; then 12 trials of lm_run_sharded against a single-card
+    program whose trial is ba.lm_trial (_lm_trial_program), the same
+    bits again."""
     from simplepanorama_tpu_torch import ba
     from simplepanorama_tpu_torch.parallel.dist_ba import lm_run_sharded
     cams, data = _ba_problem_card()
@@ -1404,15 +1417,17 @@ def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
         pb = ba.lm_problem(data, active, group=group)
         st = ba.lm_init(cams, pb, 0.05, fast)
         before = ba_kernel.assemble_streams.launches
-        with ba._device_trials(True):
-            out[name] = ba.lm_trial(st, pb, fast)
+        out[name] = ba.lm_trial(st, pb, fast)
         torch.cuda.synchronize()
         assert ba_kernel.assemble_streams.launches == before + 1
     for a, b in zip(*(list(out[k].cams) + list(out[k][1:])
                       for k in ("plain", "sharded"))):
         assert torch.equal(a, b)
-    r_e = ba.lm_run_eager(cams, data, active, 0.05, fast=fast,
-                          max_iter=12)[0]
+    single = _lm_trial_program(data, 4, fast, max_iter=12)
+    try:
+        r_e = single.run(cams, active, 0.05)[0]
+    finally:
+        single.close()
     r_s = lm_run_sharded(cams, data, active, 0.05, world1, fast=fast,
                          max_iter=12)
     for a, b in zip(r_e.cams, r_s.cams):
@@ -1421,7 +1436,7 @@ def test_sharded_trial_equals_unsharded_at_world_1(world1, fast):
     assert int(r_e.n_iter) == int(r_s.n_iter) == 12
 
 
-def _lm_trial_program(data, n_cams, fast):
+def _lm_trial_program(data, n_cams, fast, max_iter=50):
     """A single-card ba.LMProgram whose captured trial is ba.lm_trial,
     as a sharded program's is (the trial before kernels 4 and 5)."""
     from simplepanorama_tpu_torch import ba
@@ -1431,7 +1446,7 @@ def _lm_trial_program(data, n_cams, fast):
 
         def trial(self):
             self._store(ba.lm_trial(self.st, self.pb, self.fast))
-    return LmTrialProgram(data, n_cams, fast)
+    return LmTrialProgram(data, n_cams, fast, max_iter)
 
 
 def _same_run(a, b):
@@ -1444,11 +1459,14 @@ def _same_run(a, b):
 
 @pytest.mark.parametrize("problem", ["slice1_relaxed", "slice3_lowe"])
 def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
-                                                         request):
+                                                         request,
+                                                         monkeypatch):
     """ba.LMProgram with the mesh's process group (the sharded trial, its
     two NCCL all_reduces captured in the graph) at world 1, on the last
     bucket of slice 1's BA (relaxed) and of slice 3's (Lowe), against
-    ba.lm_run_eager with the group and ba.LMProgram without one (its
+    the same sharded program with its trial uncaptured
+    (_capture_uncaptured: kernel 3 and the all_reduces issued one by
+    one) and ba.LMProgram without a group (its
     trial captured as ba.lm_trial, _lm_trial_program: a program without
     a group replays kernels 4, 3 and 5, held to a float64 run in
     test_fused_program_follows_the_eager_lm), from the same start:
@@ -1468,17 +1486,20 @@ def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
     args = request.getfixturevalue(problem.split("_")[0] + "_ba")
     data_c, n_cap, cams, active, n = _last_bucket(args)
     runs, counts = {}, {}
-    sharded = ba.LMProgram(shard_matches(data_c, world1), n_cap, fast,
-                           group=world1.group)
+    sharded, eager = (ba.LMProgram(shard_matches(data_c, world1), n_cap,
+                                   fast, group=world1.group)
+                      for _ in range(2))
     single = _lm_trial_program(data_c, n_cap, fast)
+
+    def uncaptured():
+        with monkeypatch.context() as m:
+            m.setattr(ba.LMProgram, "_capture", _capture_uncaptured)
+            return eager.run(cams, active, 0.05, n - 1)
     try:
         for name, run in (
                 ("graph_sharded", lambda: sharded.run(cams, active, 0.05,
                                                       n - 1)),
-                ("eager_sharded", lambda: ba.lm_run_eager(
-                    cams, data_c, active, 0.05, fast=fast, vaug_idx=n - 1,
-                    ws=ba_kernel.workspace(data_c.mi.shape[0], n_cap,
-                                           "cuda"), group=world1.group)),
+                ("eager_sharded", uncaptured),
                 ("graph_single", lambda: single.run(cams, active, 0.05,
                                                     n - 1))):
             before = ba_kernel.assemble_streams.launches
@@ -1492,6 +1513,7 @@ def test_graphed_sharded_lm_equals_eager_and_single_card(world1, problem,
         assert _same_run(again, runs["graph_sharded"])
     finally:
         sharded.close()
+        eager.close()
         single.close()
     assert not sharded.trial_kernels
     assert sharded.per_trial == {ba_kernel.assemble_streams: 1,

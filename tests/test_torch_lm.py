@@ -2,9 +2,10 @@
 stitch.bundle_adjust_stitching) against the JAX package, on the CPU.
 
 Inputs are made from numpy seeds and handed to both packages. On the CPU
-the trial sums its camera system with ops/ba_kernel's plain version, so
-this holds the same trial body that the card replays as a CUDA graph
-(tests/test_torch_cuda.py holds the replay against the eager trial).
+the trial sums its camera system with ops/ba_kernel's plain version and
+runs through an LMProgram's loop, as on the card; there the trial is
+kernels 4, 3 and 5 replayed as a CUDA graph (tests/test_torch_cuda.py
+holds it against a float64 run of this one).
 """
 
 import numpy as np
@@ -77,19 +78,19 @@ def test_singular_trial_is_rejected_as_in_jax():
 
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("read_every", [1, 7, 50])
-def test_read_every_does_not_change_the_run(read_every, fast):
-    """A trial after the run has ended is an exact no-op, so reading the
-    termination flag every 1, 7 or 50 trials gives the run of the
-    default (every ba.READ_EVERY) bit for bit: trials, accepted steps,
-    lambda, error and cameras."""
+def test_read_every_does_not_change_the_run(read_every, fast, monkeypatch):
+    """A trial after the run has ended is an exact no-op, so a program
+    made to read the termination flag every 1, 7 or 50 trials
+    (ba.READ_EVERY set to that) gives the run of the default bit for bit:
+    trials, accepted steps, lambda, error and cameras."""
     data, rot0, f = _ba_problem()
     data_t = _to_torch(data)
     act = torch.ones(4, dtype=torch.bool)
-    want, _, _ = tba.lm_run_eager(_start(4, f, rot0, data_t), data_t, act,
-                                  0.05, fast=fast)
-    got, executed, reads = tba.lm_run_eager(
-        _start(4, f, rot0, data_t), data_t, act, 0.05, fast=fast,
-        read_every=read_every)
+    want, _, _ = tba.LMProgram(data_t, 4, fast).run(
+        _start(4, f, rot0, data_t), act, 0.05)
+    monkeypatch.setattr(tba, "READ_EVERY", read_every)
+    got, executed, reads = tba.LMProgram(data_t, 4, fast).run(
+        _start(4, f, rot0, data_t), act, 0.05)
     assert executed == reads * read_every >= int(got.n_iter)
     assert int(got.n_iter) == int(want.n_iter)
     assert int(got.n_accepted) == int(want.n_accepted)
@@ -171,7 +172,8 @@ def _component(seed=3, n=5, f=420.0, n_per_pair=90, noise=0.3):
 @pytest.mark.parametrize("fast", [False, True])
 def test_bundle_adjust_stitching_matches_jax(fast):
     """The incremental BA of one 5-view component through the port's
-    chunk driver (eager trials on the CPU) against the JAX package's
+    chunk driver (a program a chunk on the CPU, ba.lm_step between
+    reads) against the JAX package's
     fused program (one compiled program per chunk), relaxed and Lowe
     objectives, from the same component, matches and homographies (the
     matching stage's RANSAC is not run, so no draws need injecting).

@@ -164,9 +164,8 @@ _FRESH = textwrap.dedent("""
     cams = ba.CamState(focal=torch.full((n,), f * 1.1),
                        ppal=torch.zeros((n, 2)), rotvec=T(rot0),
                        b=data.t.clone())
-    res, executed, _ = ba.lm_run_eager(cams, data,
-                                       torch.ones(n, dtype=torch.bool),
-                                       0.05, max_iter=20)
+    res = ba.lm_run(cams, data, torch.ones(n, dtype=torch.bool), 0.05,
+                    max_iter=20)
     lm = {"calls": calls[0], "trials": int(res.n_iter),
           "finite": bool(torch.isfinite(res.error)),
           "dynamo": "torch._dynamo" in sys.modules}
@@ -184,8 +183,8 @@ _FRESH = textwrap.dedent("""
 
 
 def test_fresh_process_never_imports_dynamo(tmp_path):
-    """A fresh interpreter, with no JAX imported, runs one eager LM
-    (ba.lm_run_eager, 20 trials) and one 4-view 320-px CPU stitch with
+    """A fresh interpreter, with no JAX imported, runs one LM on the CPU
+    (ba.lm_run, 20 trials) and one 4-view 320-px CPU stitch with
     its preview. Both take the pair Jacobian in every trial, and neither
     leaves torch._dynamo in sys.modules."""
     env = dict(os.environ)

@@ -242,7 +242,7 @@ def test_ranks_hold_the_same_results(world):
 @pytest.mark.parametrize("fast", [True, False])
 def test_lm_run_sharded_matches_jax(world, fast):
     """lm_run_sharded over 2 ranks against the JAX package's over
-    make_mesh(2) and against the port's unsharded LM (ba.lm_run_eager),
+    make_mesh(2) and against the port's unsharded LM (ba.lm_run),
     12 trials. Tolerance (tests/test_parallel.py's): errors within 1e-2
     relative, rotation vectors within 5e-3; focals within 1e-3 relative
     of the unsharded port's. The relaxed objective moves b."""
@@ -255,8 +255,8 @@ def test_lm_run_sharded_matches_jax(world, fast):
     data_t = tba.BAData(*(T(inp["ba_" + k]) for k in tba.BAData._fields))
     cams_t = tba.CamState(T(inp["ba_focal"]), T(inp["ba_ppal"]),
                           T(inp["ba_rotvec"]), data_t.t.clone())
-    rt = tba.lm_run_eager(cams_t, data_t, torch.ones(4, dtype=torch.bool),
-                          0.05, fast=fast, max_iter=12)[0]
+    rt = tba.lm_run(cams_t, data_t, torch.ones(4, dtype=torch.bool),
+                    0.05, fast=fast, max_iter=12)
     f = int(fast)
     err = float(r0[f"lm{f}_error"])
     np.testing.assert_allclose(err, float(rj.error), rtol=1e-2)

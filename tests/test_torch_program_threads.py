@@ -35,7 +35,7 @@ class _Stub:
     meet = None
     trial_kernels = True   # a single-card program: kernels 4, 3 and 5
 
-    def __init__(self, data, n_cams, fast, max_iter=50, read_every=8):
+    def __init__(self, data, n_cams, fast, max_iter=50):
         self.graph, self.capture_s = None, 0.0
         self.loaded_by = threading.get_ident()
         self.runs = 0
@@ -66,8 +66,8 @@ def _chunks(data, cams, n):
         active = torch.zeros(4, dtype=torch.bool)
         active[0] = True
         with tba.program(data, 4, False) as prog:
-            tstitch._lm_chunk(cams, active, data, 1, L, [0, 0, 1, 2],
-                              H_pair, np.arange(L), 0.05, False, prog)
+            tstitch._lm_chunk(cams, active, prog, 1, L, [0, 0, 1, 2],
+                              H_pair, np.arange(L), 0.05)
     return n
 
 
@@ -93,7 +93,7 @@ def test_threads_on_one_key_never_interleave(monkeypatch):
     eight chunks each: every run finds the program loaded by its own
     thread, and one program served them all."""
     problems = [_problem(5 + k % 2) for k in range(6)]
-    assert len({tba._program_key(d, 4, False, 50, 8)
+    assert len({tba._program_key(d, 4, False, 50)
                 for d, _ in problems}) == 1
     assert _in_threads(monkeypatch, problems, 8) == [8] * 6
     assert len(tba._PROGRAMS) == 1
@@ -111,9 +111,10 @@ def test_threads_on_two_keys_run_at_once(monkeypatch):
 
 def test_eager_runs_in_two_threads_equal_alone():
     """Two LM runs at once in two threads, as two stitches on the CPU run
-    them (ba.lm_run_eager: the chain rule and the hand-written pair
-    Jacobian in every trial, no AD and no lock between the threads):
-    each equals its run alone, bit for bit."""
+    them (ba.lm_run: a program each, not kept, ba.lm_step between reads:
+    the chain rule and the hand-written pair Jacobian in every trial, no
+    AD and no lock between the threads): each equals its run alone, bit
+    for bit."""
     problems = [_problem(5), _problem(6)]
     active = torch.ones(4, dtype=torch.bool)
 
@@ -121,7 +122,7 @@ def test_eager_runs_in_two_threads_equal_alone():
         data, cams = problems[k]
         if meet is not None:
             meet.wait()
-        return tba.lm_run_eager(cams, data, active, 0.05, max_iter=12)[0]
+        return tba.lm_run(cams, data, active, 0.05, max_iter=12)
     alone = [run(k) for k in (0, 1)]
     meet = threading.Barrier(2, timeout=30)
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
