@@ -12,7 +12,8 @@
 //
 // Memory model. Tiles are read by other CTAs than the ones that wrote them
 // within one persistent launch, so every load of the state bypasses L1
-// (cp.async.cg, __ldcg) and the grid barriers order the writes.
+// (cp.async.cg, __ldcg) and the grid barriers order the writes (in kernel
+// 1's resident route, release and acquire of the tiles' own words do).
 
 #pragma once
 
@@ -49,7 +50,7 @@ enum Flag {
   F_LEVELS = 6,     // BFS levels run, summed over tiles and rounds
   F_PUSH_NS = 8,    // [8..9] ns in push blocks (one u64, all launches)
   F_BFS_NS = 10,    // [10..11] ns in BFSs, seed included (one u64)
-  F_COUNT = 12
+  F_COUNT = 16      // 7 and 12..15: kernel 1's own (csrc/mincut.cu)
 };
 
 // the device's nanosecond clock, read by one thread at grid barriers to

@@ -431,7 +431,8 @@ _ENTRY = {}
 
 # the solvers' counters, in the order of the C entry points' stats
 _STATS = ("outer", "bfs_rounds", "launches", "host_reads", "push_tiles",
-          "resident", "push_ns", "bfs_ns", "bfs_levels", "bfs_tile_runs")
+          "resident", "push_ns", "bfs_ns", "bfs_levels", "bfs_tile_runs",
+          "push_phases", "push_checks", "push_waits")
 
 
 def build(kernel: str = "grid_mincut", rebuild: bool = False) -> float:
@@ -484,7 +485,7 @@ def _launch(kernel, cap_h, cap_v, excess0, node, max_outer, inner_iters,
     d = torch.empty((H, W), dtype=torch.float32, device=dev) if dist else None
     work = torch.empty(int(work_floats(H, W)), dtype=torch.float32,
                        device=dev)
-    flags = torch.zeros(12, dtype=torch.int32, device=dev)
+    flags = torch.zeros(16, dtype=torch.int32, device=dev)
     stats = (ctypes.c_longlong * len(_STATS))()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -500,10 +501,13 @@ def _launch(kernel, cap_h, cap_v, excess0, node, max_outer, inner_iters,
 
 def _count_solve(stats: dict) -> None:
     """Add a card solve's outer rounds, device nanoseconds of pushes and
-    BFSs and BFS tile runs to the counters ``mincut.outer``,
-    ``mincut.push_ns``, ``mincut.bfs_ns`` and ``mincut.bfs_tile_runs``."""
+    BFSs, BFS tile runs, push phases and neighbour phase-word checks and
+    waits to the counters ``mincut.outer``, ``mincut.push_ns``,
+    ``mincut.bfs_ns``, ``mincut.bfs_tile_runs``, ``mincut.push_phases``,
+    ``mincut.push_checks`` and ``mincut.push_waits``."""
     timer = global_timer()
-    for k in ("outer", "push_ns", "bfs_ns", "bfs_tile_runs"):
+    for k in ("outer", "push_ns", "bfs_ns", "bfs_tile_runs", "push_phases",
+              "push_checks", "push_waits"):
         timer.add("mincut." + k, stats[k])
 
 
@@ -525,11 +529,17 @@ def grid_mincut(cap_h: torch.Tensor, cap_v: torch.Tensor,
     route, launches, host reads, push tiles worked by the tiled route,
     ``resident``: 1 when the grid's tiles stayed in shared memory, 0 when
     it took the tiled route, the device nanoseconds of the push blocks
-    and of the BFSs, read from the device clock at grid barriers, the BFS
-    levels run, summed over tiles and runs, and ``bfs_tile_runs``: the
-    runs of the resident tiles' BFSs, which are driven by events and not
-    by rounds); every card solve adds its outer rounds, nanoseconds and
-    tile runs to the timer's counters (``_count_solve``)."""
+    and of the BFSs, read from the device clock where the grid's push
+    block and BFS end, the BFS levels run, summed over tiles and runs,
+    ``bfs_tile_runs``: the runs of the resident tiles' BFSs, which are
+    driven by events and not by rounds, and, resident only,
+    ``push_phases``: the push phases the
+    launches ran, ``push_checks``: the resident tiles' checks of a
+    neighbour's phase word (one per tile, phase, neighbour and hand-off),
+    and ``push_waits``: the checks that found the neighbour not yet
+    there); every card solve adds its outer rounds, nanoseconds, tile
+    runs, push phases, checks and waits to the timer's counters
+    (``_count_solve``)."""
     _check(cap_h, cap_v, excess0, node)
     H, W = cap_h.shape
     if sweep_iters <= 0:

@@ -117,16 +117,19 @@ def test_tiled_kernel_matches_plain_version(cuda, H, W, seed):
 
 @pytest.mark.parametrize("kernel", ["grid_mincut", "grid_mincut_tiled"])
 def test_solve_adds_its_stats_to_the_counters(cuda, kernel):
-    """One card solve adds its outer rounds, push and BFS nanoseconds and
-    BFS tile runs (its ``last_stats``) to the timer's ``mincut.*``
-    counters. Kernel 1's resident BFS, driven by events, counts no rounds
-    and runs every tile at least once a BFS; the tiled route counts
-    rounds and no tile runs."""
+    """One card solve adds its outer rounds, push and BFS nanoseconds, BFS
+    tile runs, push phases and neighbour checks and waits (its
+    ``last_stats``) to the timer's ``mincut.*`` counters. Kernel 1's
+    resident BFS, driven by events, counts no rounds and runs every tile
+    at least once a BFS, and its resident launches count their push
+    phases; the tiled route counts rounds, and no tile runs or resident
+    push phases."""
     from simplepanorama_tpu_torch.utils.timing import global_timer
     host = cut_grid(200, 328, 3, (40, 90, 82, 148))
     t = [torch.from_numpy(a).to(cuda) for a in host]
     counters = global_timer().counters
-    keys = ("outer", "push_ns", "bfs_ns", "bfs_tile_runs")
+    keys = ("outer", "push_ns", "bfs_ns", "bfs_tile_runs", "push_phases",
+            "push_checks", "push_waits")
     before = {k: counters.get("mincut." + k, 0) for k in keys}
     solver = getattr(maxflow, kernel)
     solver(*t)
@@ -137,8 +140,10 @@ def test_solve_adds_its_stats_to_the_counters(cuda, kernel):
     if kernel == "grid_mincut":
         assert stats["resident"] == 1 and stats["bfs_rounds"] == 0, stats
         assert stats["bfs_tile_runs"] >= stats["outer"] + 1, stats
+        assert stats["push_phases"] == 30 * stats["outer"], stats
     else:
         assert stats["bfs_tile_runs"] == 0 and stats["bfs_rounds"] > 0, stats
+        assert stats["push_phases"] == stats["push_checks"] == 0, stats
 
 
 _BFS_GRIDS = {
@@ -242,6 +247,46 @@ def test_resident_bfs_distances_exact(cuda, grid, tmp_path):
     assert torch.equal(got, want), int((got != want).sum())
 
 
+_PUSH_GRIDS = {
+    "seam700": None,   # the 640x640 block of a 700-px loop: 50x64 tiles
+    "grid1232x640": lambda: cut_grid(1232, 640, 3, (308, 616, 160, 320)),
+    "maze64x160": lambda: maze_grid(64, 160, 3),
+}
+
+
+@pytest.mark.parametrize("grid", sorted(_PUSH_GRIDS))
+def test_resident_push_phases_wait_on_neighbours(cuda, grid, tmp_path):
+    """Kernel 1's resident push phases, the tile's cells in registers and
+    each tile waiting only on its neighbours' phase words, against
+    grid_mincut_ref: cut values within 1e-3 relative (float64 recount),
+    sides equal on >= 99.9% of nodes. Its counters: every launch after
+    the first ran the 30 phases of inner_iters (push_phases = outer x
+    30); a tile checks each neighbour's word twice a phase, once in the
+    last (push_checks a multiple of outer x 59), and no more checks
+    waited than were made."""
+    if grid == "seam700":
+        from chip_smoke import _seam_graph
+        t = _seam_graph(torch, str(tmp_path), 700)
+        assert tuple(t[0].shape) == (640, 640)
+    else:
+        t = [torch.from_numpy(a).to(cuda) for a in _PUSH_GRIDS[grid]()]
+    host = [a.cpu().numpy() for a in t]
+    side_k = maxflow.grid_mincut(*t)
+    stats = dict(maxflow.grid_mincut.last_stats)
+    side_r = maxflow.grid_mincut_ref(*t)
+    torch.cuda.synchronize()
+    assert stats["resident"] == 1 and 0 < stats["outer"] < 400, stats
+    assert stats["push_phases"] == 30 * stats["outer"], stats
+    assert stats["push_checks"] > 0, stats
+    assert stats["push_checks"] % (59 * stats["outer"]) == 0, stats
+    assert 0 <= stats["push_waits"] <= stats["push_checks"], stats
+    v_k = maxflow.cut_value(*host, side_k)
+    v_r = maxflow.cut_value(*host, side_r)
+    assert abs(v_k - v_r) <= 1e-3 * max(1.0, abs(v_r)), (v_k, v_r)
+    assert (side_k.cpu().numpy() == side_r.cpu().numpy())[host[3]].mean() \
+        >= 0.999
+
+
 def test_kernel1_takes_tiled_route_when_tiles_do_not_fit(cuda):
     """A 1000x1100 grid (1.1M cells, under WHOLE_GRID_MAX_CELLS) is too
     large for kernel 1's tiles to stay resident in shared memory: it takes
@@ -253,6 +298,24 @@ def test_kernel1_takes_tiled_route_when_tiles_do_not_fit(cuda):
     side_2 = maxflow.grid_mincut_tiled(*t)
     torch.cuda.synchronize()
     assert stats["resident"] == 0 and stats["outer"] < 400, stats
+    v1 = maxflow.cut_value(*host, side_1)
+    v2 = maxflow.cut_value(*host, side_2)
+    assert abs(v1 - v2) <= 1e-3 * max(1.0, abs(v2)), (v1, v2)
+
+
+def test_kernel1_takes_tiled_route_when_bands_are_too_tall(cuda):
+    """A 400x2242 grid fits kernel 1's resident tiles (37x192), but their
+    push phase would hold bands of 19 rows a thread, past the tallest
+    strip kept in registers (16): it takes kernel 2's tiled route and
+    gives kernel 2's cut value, and runs no resident push phase."""
+    host = cut_grid(400, 2242, 3, (100, 200, 560, 1121))
+    t = [torch.from_numpy(a).to(cuda) for a in host]
+    side_1 = maxflow.grid_mincut(*t)
+    stats = dict(maxflow.grid_mincut.last_stats)
+    side_2 = maxflow.grid_mincut_tiled(*t)
+    torch.cuda.synchronize()
+    assert stats["resident"] == 0 and stats["outer"] < 400, stats
+    assert stats["push_phases"] == 0, stats
     v1 = maxflow.cut_value(*host, side_1)
     v2 = maxflow.cut_value(*host, side_2)
     assert abs(v1 - v2) <= 1e-3 * max(1.0, abs(v2)), (v1, v2)
